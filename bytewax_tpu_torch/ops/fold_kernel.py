@@ -9,8 +9,9 @@ a shared library with a plain C interface, at first use, into
 with ``ctypes``.  Nothing is built when this module is imported.
 
 :func:`fold` is the only way in: it checks device, dtype, contiguity
-and shape, launches on PyTorch's current stream, raises if the launch
-fails, and counts launches in :data:`launches`.  There is no fallback:
+and shape, launches on PyTorch's current stream (the kernel sizes its
+own grid), raises if the launch fails, and counts launches in
+:data:`launches`.  There is no fallback:
 the CPU path is the plain version in :mod:`bytewax_tpu_torch.ops.segment`,
 which the entry points there pick only for CPU tensors.
 """
@@ -42,9 +43,6 @@ SRC_SLOT, SRC_EXT16, SRC_EXT32, SRC_PACKED = 0, 1, 2, 3
 _OPS = {"add": 0, "min": 1, "max": 2}
 _COUNT_BIT = 4
 _MAX_FIELDS = 4
-#: Resident blocks per SM the grid-stride loop is sized for.
-_BLOCKS_PER_SM = 8
-_THREADS = 256
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "segment_fold.cu"
@@ -57,7 +55,6 @@ build_log = ""
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_sms: Dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -124,7 +121,6 @@ def build() -> ctypes.CDLL:
             ctypes.c_float,  # scale
             ctypes.c_longlong,  # n
             ctypes.c_longlong,  # capacity
-            ctypes.c_int,  # blocks
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -138,12 +134,29 @@ def _require(ok: bool, what: str) -> None:
         raise ValueError(msg)
 
 
-def _check_tensor(t: torch.Tensor, name: str, dev: torch.device, dtypes, ndim: int):
+def _check_tensor(t, name: str, dev: torch.device, dtypes, ndim: int) -> None:
+    # The messages are formatted only on failure: this runs several
+    # times per launch.
+    if (
+        isinstance(t, torch.Tensor)
+        and t.device == dev
+        and t.dtype in dtypes
+        and t.dim() == ndim
+        and t.is_contiguous()
+    ):
+        return
     _require(isinstance(t, torch.Tensor), f"{name} must be a tensor")
     _require(t.device == dev, f"{name} is on {t.device}, state on {dev}")
     _require(t.dtype in dtypes, f"{name} has dtype {t.dtype}, not one of {dtypes}")
     _require(t.dim() == ndim, f"{name} must be {ndim}-D, got {tuple(t.shape)}")
     _require(t.is_contiguous(), f"{name} must be contiguous")
+
+
+_ROW_TYPES = {
+    SRC_SLOT: (torch.int32,),
+    SRC_EXT16: (torch.int16,),
+    SRC_EXT32: (torch.int32,),
+}
 
 
 def fold(
@@ -185,13 +198,8 @@ def fold(
         _require(vals is None, "packed rows carry their values")
         n = rows.shape[1]
     else:
-        row_types = {
-            SRC_SLOT: (torch.int32,),
-            SRC_EXT16: (torch.int16,),
-            SRC_EXT32: (torch.int32,),
-        }
-        _require(source in row_types, f"unknown row source {source}")
-        _check_tensor(rows, "rows", dev, row_types[source], 1)
+        _require(source in _ROW_TYPES, f"unknown row source {source}")
+        _check_tensor(rows, "rows", dev, _ROW_TYPES[source], 1)
         _check_tensor(vals, "vals", dev, (acc,), 1)
         n = rows.shape[0]
         _require(vals.shape[0] == n, "rows and vals differ in length")
@@ -203,20 +211,17 @@ def fold(
         n_map = ext_to_slot.shape[0]
         _require(n_map >= 1, "empty id->slot table")
         map_ptr = ext_to_slot.data_ptr()
-    if n == 0:
+    if n == 0 or capacity == 1:
         return
     lib = build()
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    blocks = max(1, min(-(-n // _THREADS), _sms[idx] * _BLOCKS_PER_SM))
+    acc_int = 1 if acc == torch.int32 else 0
     ptrs = [state[name].data_ptr() for name in names]
     ptrs += [None] * (_MAX_FIELDS - len(ptrs))
     with torch.cuda.device(idx):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.bw_segment_fold(
             source,
-            1 if acc == torch.int32 else 0,
+            acc_int,
             len(names),
             codes,
             *ptrs,
@@ -227,11 +232,11 @@ def fold(
             float(scale),
             n,
             capacity,
-            blocks,
-            stream,
+            torch._C._cuda_getCurrentRawStream(idx),
         )
     if err != 0:
         msg = f"segment-fold kernel launch failed: CUDA error {err}"
         raise RuntimeError(msg)
     with _lock:
         launches += 1
+

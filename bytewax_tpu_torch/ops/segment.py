@@ -22,6 +22,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from bytewax_tpu_torch.ops import fold_kernel
+
 __all__ = [
     "AGG_KINDS",
     "AggKind",
@@ -171,8 +173,6 @@ def update_fields(
     Padding rows carry ``slot_id == capacity - 1`` (the reserved
     scratch slot) and fold nothing."""
     if _on_card(state):
-        from bytewax_tpu_torch.ops import fold_kernel
-
         dtype = next(iter(state.values())).dtype
         fold_kernel.fold(
             kind,
@@ -198,8 +198,6 @@ def update_fields_vocab(
     the scratch slot (unseen ids, the padding sentinel) fold
     nothing."""
     if _on_card(state):
-        from bytewax_tpu_torch.ops import fold_kernel
-
         dtype = next(iter(state.values())).dtype
         source = (
             fold_kernel.SRC_EXT16
@@ -239,8 +237,6 @@ def update_fields_packed(
     host→device bytes for fixed-point data (e.g. 1BRC deci-degree
     temperatures)."""
     if _on_card(state):
-        from bytewax_tpu_torch.ops import fold_kernel
-
         fold_kernel.fold(
             kind,
             state,

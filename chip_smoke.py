@@ -8,8 +8,10 @@ Phases, each of which raises on any failure:
    this checkout (``nvcc``, ``sm_90a``);
 2. kernel — hold the segment-fold kernel against its plain PyTorch
    version on the card: every aggregation kind, float32 and int32,
-   all three row sources, 2^20 rows, capacity 1024 and 16384; time
-   both at the main path's shapes;
+   all three row sources, 2^20 rows, capacity 1024 and 16384; rows
+   with NaN values, and rows that all fold into one slot; then time it
+   at the main path's shapes (device time per launch, the wrapper's
+   host time per call);
 3. main   — the 1BRC keyed aggregation (``brc_flow_columnar``) through
    ``run_main`` at 32·2^20 rows in 2^20-row micro-batches, over 413
    and over 10,000 stations, checked against a float64 numpy
@@ -70,8 +72,9 @@ def _emit(card: dict, phase: str, **fields) -> None:
 
 
 def _time_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call on the card (CUDA events, after one
-    warm-up call)."""
+    """Mean milliseconds per call on the card (CUDA events around a
+    Python loop of calls, after one warm-up call): the device time
+    only while the device is slower than the host's calls."""
     import torch
 
     fn()
@@ -86,13 +89,82 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: The segment-fold kernel's name, as the profiler lists it.
+FOLD_KERNEL = "fold_shared"
+
+
+def _profiled_ms(fn, reps: int):
+    """Device milliseconds per call of the segment-fold kernel, from
+    ``torch.profiler``'s ``key_averages()`` (None when the profiler
+    shows no device time for it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        if FOLD_KERNEL in evt.key:
+            us = getattr(evt, "device_time_total", None)
+            if us is None:
+                us = getattr(evt, "cuda_time_total", 0.0)
+            total += us / reps / 1e3
+    return total if total > 0 else None
+
+
+def _graph_ms(fn, per_graph: int = 20, replays: int = 10) -> float:
+    """Device milliseconds per call: CUDA events around replays of a
+    CUDA graph that captured ``per_graph`` calls (no host work between
+    the launches)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * per_graph)
+
+
+def _host_us(fn, reps: int) -> float:
+    """Host microseconds per call: the time to issue ``reps`` calls,
+    without waiting for the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e6
+
+
 # -- phase 2 -----------------------------------------------------------------
 
 
-def _inputs(capacity: int, dtype, n: int, gen):
+def _inputs(capacity: int, dtype, n: int, gen, nan_share: float = 0.0):
     """Random rows for every source: slots over the whole table (the
     scratch slot included), an id->slot table that sends some ids to
-    scratch, and values with both signs."""
+    scratch, and values with both signs (a share of them NaN)."""
     import torch
 
     dev = DEV
@@ -107,6 +179,9 @@ def _inputs(capacity: int, dtype, n: int, gen):
     packed = torch.stack([ext, q]).to(torch.int16).contiguous()
     if dtype == torch.float32:
         vals = torch.randn(n, generator=gen, device=dev) * 50.0
+        if nan_share:
+            nan = torch.rand(n, generator=gen, device=dev) < nan_share
+            vals[nan] = float("nan")
     else:
         vals = torch.randint(-1000, 1000, (n,), generator=gen, device=dev, dtype=torch.int32)
     return {
@@ -117,6 +192,33 @@ def _inputs(capacity: int, dtype, n: int, gen):
         "vals": vals,
         "ext_to_slot": ext_to_slot,
     }
+
+
+#: The one-slot case's packed scale: with values ``k * 0.5`` for
+#: ``|k| <= 6`` every float32 sum of 2·2^20 rows is exact in any order.
+EXACT_SCALE = 0.5
+
+
+def _one_slot(inp: dict, slot: int, gen) -> dict:
+    """Rows that all fold into ``slot``, with values ``k * 0.5`` (int32:
+    ``k``) and packed ``q = k`` for ``|k| <= 6``, so that every sum is
+    exact and must match the plain version exactly."""
+    import torch
+
+    n = inp["slots"].shape[0]
+    k = torch.randint(-6, 7, (n,), generator=gen, device=DEV, dtype=torch.int32)
+    out = dict(inp)
+    out["slots"] = torch.full_like(inp["slots"], slot)
+    out["ext_to_slot"] = inp["ext_to_slot"].clone()
+    out["ext_to_slot"][:-1] = slot
+    out["ext16"] = torch.zeros_like(inp["ext16"])
+    out["ext32"] = torch.zeros_like(inp["ext32"])
+    out["packed"] = torch.stack([torch.zeros_like(k), k]).to(torch.int16).contiguous()
+    out["vals"] = k * 0.5 if inp["vals"].is_floating_point() else k
+    return out
+
+
+SOURCES = ("slot", "ext16", "ext32", "packed")
 
 
 def _fold(seg, which: str, kind, state, inp, scale: float, plain: bool):
@@ -159,6 +261,66 @@ def _rows_of(seg, which, inp, scale, capacity, dtype):
     return slots[valid], vals[valid]
 
 
+def _check_case(seg, card_worst: dict, which, inp, scale, capacity, dtype, tag, exact=False):
+    """Fold ``inp`` through the kernel and the plain version for every
+    kind and compare: NaN in the same slots, integer, count, min and
+    max fields exactly, float32 sums within the two-order bound (or
+    exactly, with ``exact``, for rows whose sums are exact)."""
+    import torch
+
+    slots, vals = _rows_of(seg, which, inp, scale, capacity, dtype)
+    finite = vals == vals
+    n_k = torch.zeros(capacity, dtype=torch.float64, device=DEV)
+    n_k.index_add_(0, slots, torch.ones_like(slots, dtype=torch.float64))
+    abs_k = torch.zeros(capacity, dtype=torch.float64, device=DEV)
+    abs_k.index_add_(0, slots[finite], vals[finite].double().abs())
+    checked = 0
+    for kind_name, kind in seg.AGG_KINDS.items():
+        base = seg.init_fields(kind, capacity, dtype, DEV)
+        # Start from a table that already holds state: fold the slot
+        # rows once with the plain version.
+        seg.fold_plain(kind, base, inp["slots"], inp["vals"])
+        got = {k: v.clone() for k, v in base.items()}
+        want = {k: v.clone() for k, v in base.items()}
+        _fold(seg, which, kind, got, inp, scale, plain=False)
+        _fold(seg, which, kind, want, inp, scale, plain=True)
+        torch.cuda.synchronize()
+        for name, (_init, op_name) in kind.fields.items():
+            g, w = got[name], want[name]
+            where = f"{tag}/{kind_name}/{name}/{which}/{dtype}/cap{capacity}"
+            if dtype == torch.float32:
+                nan = torch.isnan(w)
+                if not torch.equal(torch.isnan(g), nan):
+                    msg = f"kernel and plain hold NaN in other slots: {where}"
+                    raise AssertionError(msg)
+                card_worst["nan_slots"] += int(nan.sum())
+                keep = ~nan
+            else:
+                keep = torch.ones_like(g, dtype=torch.bool)
+            if op_name != "add" or name == "count" or dtype == torch.int32 or exact:
+                if not torch.equal(g[keep], w[keep]):
+                    bad = int((g[keep] != w[keep]).sum())
+                    msg = f"kernel != plain at {bad} slots: {where}"
+                    raise AssertionError(msg)
+                continue
+            # Two summation orders of n_k terms (plus the state's own
+            # value) differ by at most 2·n·2^-24·Σ|x| per slot.
+            base_abs = base[name].double().abs()
+            bound = (2.0 * (n_k + 1) * 2.0**-24 * (abs_k + base_abs))[keep]
+            diff = (g.double() - w.double()).abs()[keep]
+            card_worst["abs"] = max(card_worst["abs"], float(diff.max()))
+            if bool((diff > bound).any()):
+                msg = f"float sum outside the two-order bound: {where}"
+                raise AssertionError(msg)
+            nz = bound > 0
+            if bool(nz.any()):
+                card_worst["ratio"] = max(
+                    card_worst["ratio"], float((diff[nz] / bound[nz]).max())
+                )
+        checked += 1
+    return checked
+
+
 def phase_kernel(card: dict, n: int) -> dict:
     import torch
 
@@ -168,70 +330,54 @@ def phase_kernel(card: dict, n: int) -> dict:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     scale = 0.1
-    worst_ratio = 0.0
-    worst_abs = 0.0
-    checked = 0
+    worst = {"abs": 0.0, "ratio": 0.0, "nan_slots": 0}
+    checked = {}
     for capacity in (1024, 16384):
         for dtype in (torch.float32, torch.int32):
             inp = _inputs(capacity, dtype, n, gen)
-            for which in ("slot", "ext16", "ext32", "packed"):
-                slots, vals = _rows_of(seg, which, inp, scale, capacity, dtype)
-                n_k = torch.zeros(capacity, dtype=torch.float64, device=DEV)
-                n_k.index_add_(0, slots, torch.ones_like(slots, dtype=torch.float64))
-                abs_k = torch.zeros(capacity, dtype=torch.float64, device=DEV)
-                abs_k.index_add_(0, slots, vals.double().abs())
-                for kind_name, kind in seg.AGG_KINDS.items():
-                    base = seg.init_fields(kind, capacity, dtype, DEV)
-                    # Start from a table that already holds state: fold
-                    # the slot rows once with the plain version.
-                    seg.fold_plain(kind, base, inp["slots"], inp["vals"])
-                    got = {k: v.clone() for k, v in base.items()}
-                    want = {k: v.clone() for k, v in base.items()}
-                    _fold(seg, which, kind, got, inp, scale, plain=False)
-                    _fold(seg, which, kind, want, inp, scale, plain=True)
-                    torch.cuda.synchronize()
-                    for name, (_init, op_name) in kind.fields.items():
-                        g, w = got[name], want[name]
-                        tag = f"{kind_name}/{name}/{which}/{dtype}/cap{capacity}"
-                        if op_name != "add" or name == "count" or dtype == torch.int32:
-                            if not torch.equal(g, w):
-                                bad = int((g != w).sum())
-                                msg = f"kernel != plain at {bad} slots: {tag}"
-                                raise AssertionError(msg)
-                            continue
-                        # Two summation orders of n_k terms (plus the
-                        # state's own value) differ by at most
-                        # 2·n·2^-24·Σ|x| per slot.
-                        base_abs = base[name].double().abs()
-                        bound = 2.0 * (n_k + 1) * 2.0**-24 * (abs_k + base_abs)
-                        diff = (g.double() - w.double()).abs()
-                        worst_abs = max(worst_abs, float(diff.max()))
-                        if bool((diff > bound).any()):
-                            msg = f"float sum outside the two-order bound: {tag}"
-                            raise AssertionError(msg)
-                        nz = bound > 0
-                        if bool(nz.any()):
-                            worst_ratio = max(
-                                worst_ratio, float((diff[nz] / bound[nz]).max())
-                            )
-                    checked += 1
+            for which in SOURCES:
+                checked["random"] = checked.get("random", 0) + _check_case(
+                    seg, worst, which, inp, scale, capacity, dtype, "random"
+                )
+            # Every row on one slot: the worst case for the shared
+            # table's atomics.  Its sums are exact, so they must match.
+            hot = _one_slot(inp, 5, gen)
+            for which in SOURCES:
+                checked["one_slot"] = checked.get("one_slot", 0) + _check_case(
+                    seg, worst, which, hot, EXACT_SCALE, capacity, dtype, "one_slot", exact=True
+                )
+        # NaN rows (float32 only; packed rows cannot carry NaN).
+        inp = _inputs(capacity, torch.float32, n, gen, nan_share=1e-4)
+        for which in ("slot", "ext16", "ext32"):
+            checked["nan"] = checked.get("nan", 0) + _check_case(
+                seg, worst, which, inp, scale, capacity, torch.float32, "nan"
+            )
+    if worst["nan_slots"] == 0:
+        msg = "the NaN cases left no NaN in any field"
+        raise AssertionError(msg)
     _emit(
         card,
         "kernel",
         checked_cases=checked,
         rows=n,
-        max_abs_err=worst_abs,
-        max_sum_err_over_bound=worst_ratio,
+        max_abs_err=worst["abs"],
+        max_sum_err_over_bound=worst["ratio"],
+        nan_slots_matched=worst["nan_slots"],
         launches_while_checking=fold_kernel.launches,
     )
-    return {"max_abs_err": worst_abs, "max_sum_err_over_bound": worst_ratio}
+    return {"max_abs_err": worst["abs"], "max_sum_err_over_bound": worst["ratio"]}
 
 
 def _time_main_shapes(card: dict, n: int, capacity: int, n_stations: int) -> dict:
     """Kernel, plain version and library call at the 1BRC main path's
-    shapes: stats over packed rows, float32, one 2^20-row batch."""
+    shapes: stats over packed rows, float32, one 2^20-row batch.
+
+    ``ms`` is the kernel's device time per launch (the profiler's, or
+    a replayed CUDA graph's where the profiler shows none); ``host_us``
+    is the wrapper's host time per call."""
     import torch
 
+    from bytewax_tpu_torch.ops import fold_kernel
     from bytewax_tpu_torch.ops import segment as seg
 
     gen = torch.Generator(device=DEV)
@@ -246,7 +392,23 @@ def _time_main_shapes(card: dict, n: int, capacity: int, n_stations: int) -> dic
     packed = torch.stack([ids, q]).to(torch.int16).contiguous()
     state = seg.init_fields(kind, capacity, torch.float32, DEV)
     reps = 50
-    ms = _time_ms(
+
+    def kernel():
+        fold_kernel.fold(
+            kind,
+            state,
+            fold_kernel.SRC_PACKED,
+            packed,
+            None,
+            ext_to_slot=ext_to_slot,
+            scale=scale,
+        )
+
+    profiled_ms = _profiled_ms(kernel, reps)
+    graph_ms = _graph_ms(kernel)
+    ms = profiled_ms if profiled_ms is not None else graph_ms
+    host_us = _host_us(kernel, 200)
+    events_ms = _time_ms(
         lambda: seg.update_fields_packed(kind, state, ext_to_slot, packed, scale), reps
     )
     plain_ms = _time_ms(
@@ -278,6 +440,10 @@ def _time_main_shapes(card: dict, n: int, capacity: int, n_stations: int) -> dic
     bound_s = max(bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
     res = {
         "ms": ms,
+        "ms_from": "profiler" if profiled_ms is not None else "cuda_graph",
+        "graph_ms": graph_ms,
+        "host_us": host_us,
+        "events_ms": events_ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": bound_s * 1e3,
@@ -285,7 +451,15 @@ def _time_main_shapes(card: dict, n: int, capacity: int, n_stations: int) -> dic
         if bytes_moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
         else "operations",
     }
-    _emit(card, "kernel_time", rows=n, capacity=capacity, stations=n_stations, **res)
+    _emit(
+        card,
+        "kernel_time",
+        rows=n,
+        capacity=capacity,
+        stations=n_stations,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count,
+        **res,
+    )
     return res
 
 
@@ -410,6 +584,7 @@ def phase_main(card: dict, rows: int, batch_rows: int, n_stations: int, times: d
         rows_per_s=rows / seconds,
         kernel_launches=launches,
         kernel_ms_per_launch=times["ms"],
+        kernel_host_us_per_call=times["host_us"],
         plain_ms=times["plain_ms"],
         library_ms=times["library_ms"],
         bound_ms=times["bound_ms"],
@@ -535,6 +710,7 @@ def main() -> int:
                         "launches": launches,
                         "max_abs_err": check["max_abs_err"],
                         "ms": times["ms"],
+                        "host_us": times["host_us"],
                         "plain_ms": times["plain_ms"],
                         "bound_ms": times["bound_ms"],
                         "bound_by": times["bound_by"],

@@ -8,9 +8,11 @@ machine with only the port installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
 
-Values are multiples of 0.5 and the packed scale is 0.5, so every
+Values are multiples of 0.5 and the packed scale is ±0.5, so every
 float32 sum here is exact in any order and the kernel must match the
-plain version exactly, atomics or not.
+plain version exactly, atomics or not.  NaN must sit in the same
+slots.  Capacity 1024 fits one block's shared table; 16384 splits it
+over 4 block ranges and 70001 (odd) over 18 for four fields.
 """
 
 import numpy as np
@@ -22,68 +24,152 @@ from bytewax_tpu_torch.ops import segment as seg
 
 SCALE = 0.5
 N_ROWS = 1 << 16
+SOURCES = {
+    "slot": fold_kernel.SRC_SLOT,
+    "ext16": fold_kernel.SRC_EXT16,
+    "ext32": fold_kernel.SRC_EXT32,
+    "packed": fold_kernel.SRC_PACKED,
+}
 
 
-def _inputs(capacity: int, integer: bool, dev):
-    rng = np.random.RandomState(capacity)
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(capacity: int, integer: bool, span: int = 2000, seed=None):
+    """Rows for every source: slots over the whole table (scratch
+    too), an id->slot table that sends some ids to scratch, and values
+    ``k * 0.5`` (or ``k``) for ``|k| < span``."""
+    rng = np.random.RandomState(capacity if seed is None else seed)
     n_map = min(capacity, 20000)
     ext_to_slot = rng.randint(0, capacity - 1, size=n_map).astype(np.int32)
     ext_to_slot[rng.rand(n_map) < 0.1] = capacity - 1  # unseen ids
     ext_to_slot[-1] = capacity - 1  # the sentinel
-    slots = rng.randint(0, capacity, size=N_ROWS).astype(np.int32)  # scratch too
+    slots = rng.randint(0, capacity, size=N_ROWS).astype(np.int32)
     ids = rng.randint(0, n_map, size=N_ROWS).astype(np.int32)
-    q = rng.randint(-999, 1000, size=N_ROWS).astype(np.int16)
-    vals = rng.randint(-2000, 2000, size=N_ROWS)
+    q = rng.randint(-span, span, size=N_ROWS).astype(np.int16)
+    vals = rng.randint(-span, span, size=N_ROWS)
     vals = vals.astype(np.int32) if integer else (vals * 0.5).astype(np.float32)
-
-    def t(a):
-        return torch.from_numpy(a).to(dev)
-
     return {
-        "ext_to_slot": t(ext_to_slot),
-        "slots": t(slots),
-        "ext16": t(ids.astype(np.int16)),
-        "ext32": t(ids),
-        "packed": t(np.stack([ids.astype(np.int16), q])),
-        "vals": t(vals),
+        "ext_to_slot": ext_to_slot,
+        "slots": slots,
+        "ids": ids,
+        "q": q,
+        "vals": vals,
     }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("capacity", [1024, 16384])
-@pytest.mark.parametrize("source", ["slot", "ext16", "ext32", "packed"])
-@pytest.mark.parametrize("integer", [False, True], ids=["float32", "int32"])
-def test_kernel_matches_plain_on_card(integer, source, capacity):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
-    dev = torch.device("cuda")
-    dtype = torch.int32 if integer else torch.float32
-    inp = _inputs(capacity, integer, dev)
+def _on(dev, inp):
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ids = inp["ids"]
+    return {
+        "ext_to_slot": t(inp["ext_to_slot"]),
+        "slots": t(inp["slots"]),
+        "ext16": t(ids.astype(np.int16)),
+        "ext32": t(ids),
+        "packed": t(np.stack([ids.astype(np.int16), inp["q"]])),
+        "vals": t(inp["vals"]),
+    }
+
+
+def _plain_rows(source, inp, scale):
     if source == "slot":
-        slots, vals = inp["slots"], inp["vals"]
-    elif source == "packed":
+        return inp["slots"], inp["vals"]
+    if source == "packed":
         slots = seg.slots_of(inp["ext_to_slot"], inp["packed"][0])
-        vals = seg.dequantize(inp["packed"], SCALE)
+        return slots, seg.dequantize(inp["packed"], scale)
+    return seg.slots_of(inp["ext_to_slot"], inp[source]), inp["vals"]
+
+
+def _kernel_fold(source, kind, state, inp, scale):
+    """One fold through the entry points."""
+    if source == "slot":
+        seg.update_fields(kind, state, inp["slots"], inp["vals"])
+    elif source == "packed":
+        seg.update_fields_packed(kind, state, inp["ext_to_slot"], inp["packed"], scale)
     else:
-        slots, vals = seg.slots_of(inp["ext_to_slot"], inp[source]), inp["vals"]
+        seg.update_fields_vocab(kind, state, inp["ext_to_slot"], inp[source], inp["vals"])
+
+
+def _same(got, want, tag):
+    """Equal, and NaN in the same places."""
+    if got.is_floating_point():
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan), f"{tag}: NaN in other slots"
+        got, want = got[~nan], want[~nan]
+    assert torch.equal(got, want), f"{tag}: {int((got != want).sum())} slots differ"
+
+
+def _check_all_kinds(dev, source, inp, dtype, capacity, scale=SCALE):
+    slots, vals = _plain_rows(source, inp, scale)
+    base_slots, base_vals = inp["slots"], inp["vals"]
+    if dtype != inp["vals"].dtype:
+        base_vals = base_vals.to(dtype)
     for kind_name, kind in seg.AGG_KINDS.items():
         got = seg.init_fields(kind, capacity, dtype, dev)
         # Start from a table that already holds state.
-        seg.fold_plain(kind, got, inp["slots"], inp["vals"])
+        seg.fold_plain(kind, got, base_slots, base_vals)
         want = {k: v.clone() for k, v in got.items()}
         before = fold_kernel.launches
-        if source == "slot":
-            seg.update_fields(kind, got, slots, vals)
-        elif source == "packed":
-            seg.update_fields_packed(
-                kind, got, inp["ext_to_slot"], inp["packed"], SCALE
-            )
-        else:
-            seg.update_fields_vocab(
-                kind, got, inp["ext_to_slot"], inp[source], inp["vals"]
-            )
+        _kernel_fold(source, kind, got, inp, scale)
         assert fold_kernel.launches == before + 1
         seg.fold_plain(kind, want, slots, vals)
         torch.cuda.synchronize()
         for name in kind.fields:
-            assert torch.equal(got[name], want[name]), f"{kind_name}/{name}"
+            _same(got[name], want[name], f"{kind_name}/{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [1024, 16384, 70001])
+@pytest.mark.parametrize("source", sorted(SOURCES))
+@pytest.mark.parametrize("integer", [False, True], ids=["float32", "int32"])
+def test_kernel_matches_plain_on_card(dev, integer, source, capacity):
+    dtype = torch.int32 if integer else torch.float32
+    inp = _on(dev, _inputs(capacity, integer))
+    _check_all_kinds(dev, source, inp, dtype, capacity)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [1024, 16384])
+@pytest.mark.parametrize("source", ["slot", "ext16", "ext32"])
+def test_nan_rows_match_plain_on_card(dev, source, capacity):
+    raw = _inputs(capacity, False, seed=capacity + 1)
+    rng = np.random.RandomState(5)
+    raw["vals"][rng.rand(N_ROWS) < 0.001] = np.nan
+    inp = _on(dev, raw)
+    _check_all_kinds(dev, source, inp, torch.float32, capacity)
+    # And NaN really reached a min field through the kernel.
+    kind = seg.AGG_KINDS["min"]
+    got = seg.init_fields(kind, capacity, torch.float32, dev)
+    _kernel_fold(source, kind, got, inp, SCALE)
+    assert bool(torch.isnan(got["min"]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", sorted(SOURCES))
+@pytest.mark.parametrize("integer", [False, True], ids=["float32", "int32"])
+def test_all_rows_on_one_slot(dev, integer, source):
+    # The worst case for shared-memory contention: every row folds into
+    # slot 3.  Small values keep every float32 sum exact.
+    capacity = 1024
+    raw = _inputs(capacity, integer, span=8)
+    raw["slots"][:] = 3
+    raw["ext_to_slot"][:-1] = 3
+    raw["ids"][:] = 7
+    dtype = torch.int32 if integer else torch.float32
+    _check_all_kinds(dev, source, _on(dev, raw), dtype, capacity)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.5, -0.5, 0.0, float("inf"), float("nan")])
+def test_packed_scales(dev, scale):
+    # A negative scale swaps min and max of q; zero, inf and NaN fold
+    # row by row in float32 (q * inf is NaN for q = 0).
+    capacity = 1024
+    inp = _on(dev, _inputs(capacity, False, seed=9))
+    _check_all_kinds(dev, "packed", inp, torch.float32, capacity, scale=scale)

@@ -173,6 +173,38 @@ def test_fold_matches_pallas_interpret(kind_name, capacity):
     assert_fields_match(kind, got, want, "float32")
 
 
+@pytest.mark.parametrize("source", ["slot", "ext16", "ext32"])
+@pytest.mark.parametrize("kind_name", ["min", "max", "stats", "sum"])
+def test_nan_rows_fold_as_the_reference_does(kind_name, source):
+    # A NaN row enters a float32 min/max (and a sum) and a stored NaN
+    # stays: three batches, the middle one with NaN rows, some on slots
+    # that already hold numbers.  This is the contract the kernel is
+    # held to on the card.
+    kind = seg.AGG_KINDS[kind_name]
+    ref_kind = ref_seg.AGG_KINDS[kind_name]
+    capacity = 128
+    rng = np.random.RandomState(11 + len(kind_name) + len(source))
+    ref_source, id_dtype = {
+        "slot": ("slot", np.int16),
+        "ext16": ("vocab", np.int16),
+        "ext32": ("vocab", np.int32),
+    }[source]
+    ref = ref_seg.init_fields(ref_kind, capacity)
+    port = seg.init_fields(kind, capacity)
+    for step in range(3):
+        b = _batch(rng, capacity, np.float32)
+        if step == 1:
+            b["vals"][rng.rand(PADDED) < 0.02] = np.nan
+        ref = _ref_fold(ref_source, ref_kind, ref, b, id_dtype)
+        _port_fold(ref_source, kind, port, b, id_dtype)
+    for name in kind.fields:
+        g, w = port[name].numpy(), np.asarray(ref[name])
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=name)
+        if name != "count":
+            assert np.isnan(g).any(), f"{name}: no NaN reached the state"
+    assert_fields_match(kind, port, ref, "float32")
+
+
 def test_infinite_identities_and_negative_extrema():
     # Float min/max start at ±inf and must take all-negative values;
     # int32 identities saturate as the JAX package's do.
