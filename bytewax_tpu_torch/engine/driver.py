@@ -1504,14 +1504,23 @@ class _StatefulBatchRt(_OpRt):
         #: the pipeline holds work the driver consults this instead.
         self._wagg_hint: Optional[datetime] = None
         spec = op.conf.get("_accel")
-        if driver.accel and isinstance(spec, AccelSpec):
-            from bytewax_tpu_torch.engine.sharded_state import make_agg_state
+        if driver.accel:
+            from bytewax_tpu_torch.engine.window_accel import WindowAccelSpec
 
-            # Keyed aggregations are the only device tier the port
-            # lowers so far (engine/flatten.py): a single-device slot
-            # table.  Window, scan and infer steps run on the host
-            # tier.
-            self.agg = make_agg_state(spec.kind, driver=driver)
+            if isinstance(spec, AccelSpec):
+                from bytewax_tpu_torch.engine.sharded_state import (
+                    make_agg_state,
+                )
+
+                # Keyed aggregation: a single-device slot table (the
+                # port's one tier).
+                self.agg = make_agg_state(spec.kind, driver=driver)
+            elif isinstance(spec, WindowAccelSpec):
+                # Sliding/tumbling or session device windower, per
+                # the spec subtype.  Scan and infer steps are not
+                # lowered by the port yet (engine/flatten.py) and run
+                # on the host tier.
+                self.wagg = spec.make_state()
         # Tiered key-state residency (docs/state-residency.md): with
         # BYTEWAX_TPU_STATE_BUDGET set, the keyed-aggregation and scan
         # tiers wrap in a manager that bounds device-resident keys,

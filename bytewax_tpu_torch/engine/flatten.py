@@ -29,8 +29,9 @@ def _annotate_accel(op: Operator) -> None:
     them on device instead of per-key Python logics.
 
     Keyed aggregations (``reduce_final`` with a marked reducer,
-    ``stats_final``) are the shapes the port lowers so far; scans,
-    inference and windows run on the host tier.
+    ``stats_final``) and windowed folds (``count_window``,
+    ``fold_window``, ``reduce_window``) are the shapes the port lowers
+    so far; scans and inference run on the host tier.
     """
     from bytewax_tpu_torch.engine.xla import AccelSpec
     from bytewax_tpu_torch.xla import Reducer
@@ -40,10 +41,142 @@ def _annotate_accel(op: Operator) -> None:
         spec = AccelSpec(op.conf["reducer"].kind)
     elif op.name == "stats_final":
         spec = AccelSpec("stats")
+    elif op.name in ("count_window", "fold_window", "reduce_window"):
+        spec = _window_accel_spec(op)
     if spec is not None:
         inner = _find_core_stateful(op)
         if inner is not None:
             inner.conf["_accel"] = spec
+
+
+def _window_accel_spec(op: Operator):
+    """Device lowering for windowed folds over EventClock +
+    tumbling/sliding windows.
+
+    ``count_window`` always lowers (the folded "value" is a constant
+    1, so only the item's timestamp matters).  Numeric folds
+    (``fold_window``/``reduce_window`` with a marked
+    ``bytewax_tpu_torch.xla`` reducer) lower too, but only columnar batches
+    carrying explicit ``key``/``ts``/``value`` columns run on device
+    — itemized deliveries can't statically promise numeric,
+    timestamp-bearing values, so the runtime falls back to the host
+    tier on first contact with them.  Session windows lower too
+    (key-local gap-merge scan, ``SessionAccelSpec``) when the
+    merger is the kind's own combine; custom/fake clocks always
+    stay host-side.
+    """
+    from bytewax_tpu_torch.engine.window_accel import (
+        SessionAccelSpec,
+        WindowAccelSpec,
+    )
+    from bytewax_tpu_torch.operators import _get_system_utc, _identity
+    from bytewax_tpu_torch.operators.windowing import (
+        EventClock,
+        SessionWindower,
+        SlidingWindower,
+        TumblingWindower,
+    )
+    from bytewax_tpu_torch.xla import Reducer, WindowFold
+
+    from bytewax_tpu_torch.ops.segment import AGG_KINDS
+
+    # A Reducer is a binary combine over bare values — only these
+    # kinds have that shape on the device tier (a Reducer("mean")
+    # would wrongly fold (sum, count) instead of applying its fn).
+    # WindowFolds carry a structured accumulator and may use any
+    # implemented kind.
+    reducer_identity = {"sum": 0, "min": float("inf"), "max": float("-inf")}
+
+    folder = op.conf.get("folder")
+    if op.name == "count_window":
+        kind = "count"
+    elif op.name == "reduce_window" and isinstance(
+        op.conf.get("reducer"), Reducer
+    ):
+        kind = op.conf["reducer"].kind
+        if kind not in reducer_identity:
+            # User-constructed Reducer with a kind the device tier
+            # has no binary-reduce lowering for: stay host-side.
+            return None
+    elif op.name == "fold_window" and isinstance(folder, (Reducer, WindowFold)):
+        kind = folder.kind
+        if isinstance(folder, WindowFold):
+            if kind not in AGG_KINDS:
+                # User-constructed WindowFold with a kind the device
+                # tier has no lowering for: stay host-side.
+                return None
+            expected = folder.make_acc()
+        else:
+            if kind not in reducer_identity:
+                return None
+            expected = reducer_identity[kind]
+        # The device fold starts from the kind's identity; a builder
+        # with any other initial accumulator must stay host-side.
+        # NOTE: the probe runs the user's builder at plan time — a
+        # builder with side effects observes one extra call.
+        try:
+            if op.conf["builder"]() != expected:
+                return None
+        except Exception as ex:  # noqa: BLE001
+            import warnings
+
+            warnings.warn(
+                f"step {op.step_id!r}: probing the window fold builder "
+                f"for device lowering raised {ex!r}; the step stays on "
+                "the host tier",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+            return None
+    else:
+        return None
+    clock = op.conf.get("clock")
+    windower = op.conf.get("windower")
+    if not isinstance(clock, EventClock):
+        return None
+    if clock.now_getter is not _get_system_utc or clock.to_system_utc is not _identity:
+        # Custom/fake clocks (tests) need the host tier's exact
+        # per-item semantics.
+        return None
+    if isinstance(windower, TumblingWindower):
+        length, offset = windower.length, windower.length
+    elif isinstance(windower, SlidingWindower):
+        length, offset = windower.length, windower.offset
+    elif isinstance(windower, SessionWindower):
+        # Sessions merge, so the device tier's slot-set combine must
+        # be the kind's own merge: require the operator's merger to
+        # be the marked reducer/fold's combine (count_window's merge
+        # is addition by construction).
+        merger = op.conf.get("merger")
+        if op.name == "fold_window":
+            from bytewax_tpu_torch.xla import WindowFold
+
+            if isinstance(folder, WindowFold):
+                if merger is not folder.merge:
+                    return None
+            elif merger is not folder:
+                return None
+        elif op.name == "reduce_window" and merger not in (
+            None,
+            op.conf.get("reducer"),
+        ):
+            return None
+        return SessionAccelSpec(
+            kind,
+            clock.ts_getter,
+            windower.gap,
+            clock.wait_for_system_duration,
+        )
+    else:
+        return None
+    return WindowAccelSpec(
+        kind,
+        clock.ts_getter,
+        windower.align_to,
+        length,
+        offset,
+        clock.wait_for_system_duration,
+    )
 
 
 CORE_OPS = frozenset(

@@ -1,0 +1,1875 @@
+"""Time-based windowing operators.
+
+The windowing machinery is the Clock / Windower / WindowLogic triad,
+all pure composition over :func:`bytewax_tpu_torch.operators.stateful_batch`
+(reference parity:
+upstream bytewax ``pysrc/bytewax/operators/windowing.py``;
+implementation is our own):
+
+- a :class:`Clock` assigns each value a timestamp and maintains the
+  *watermark* (the point in time before which no more values are
+  expected);
+- a :class:`Windower` maps timestamps to integer window ids, decides
+  lateness, merging, and closing;
+- a :class:`WindowLogic` accumulates values per open window.
+
+Window-id assignment for tumbling/sliding windows is pure arithmetic on
+``(timestamp - align_to) // offset`` — which is exactly what makes the
+device tier able to vectorize window bucketing as integer math on device.
+Session windows are data-dependent (gap merging) and stay key-local.
+"""
+
+import copy
+from abc import ABC, abstractmethod
+from dataclasses import dataclass, field
+from datetime import datetime, timedelta, timezone
+from typing import (
+    Any,
+    Callable,
+    Dict,
+    Generic,
+    Iterable,
+    List,
+    Optional,
+    Set,
+    Tuple,
+    TypeVar,
+    Union,
+    cast,
+)
+
+from typing_extensions import Literal, Self, TypeAlias
+
+import bytewax_tpu_torch.operators as op
+from bytewax_tpu_torch.dataflow import KeyedStream, Stream, operator
+from bytewax_tpu_torch.operators import (
+    JoinEmitMode,
+    JoinInsertMode,
+    StatefulBatchLogic,
+    _get_system_utc,
+    _identity,
+    _SideTable,
+    _untyped_none,
+)
+from bytewax_tpu_torch.utils import partition
+
+V = TypeVar("V")
+W = TypeVar("W")
+W_co = TypeVar("W_co", covariant=True)
+X = TypeVar("X")
+S = TypeVar("S")
+SC = TypeVar("SC")
+SW = TypeVar("SW")
+
+ZERO_TD: timedelta = timedelta(seconds=0)
+
+UTC_MIN: datetime = datetime.min.replace(tzinfo=timezone.utc)
+"""Minimum representable datetime in UTC."""
+
+UTC_MAX: datetime = datetime.max.replace(tzinfo=timezone.utc)
+"""Maximum representable datetime in UTC."""
+
+LATE_SESSION_ID: int = -1
+"""Sentinel window ID assigned to late items in session windows."""
+
+_EMPTY: Tuple = ()
+
+__all__ = [
+    "Clock",
+    "ClockLogic",
+    "EventClock",
+    "LATE_SESSION_ID",
+    "SessionWindower",
+    "SlidingWindower",
+    "SystemClock",
+    "TumblingWindower",
+    "UTC_MAX",
+    "UTC_MIN",
+    "WindowLogic",
+    "WindowMetadata",
+    "WindowOut",
+    "Windower",
+    "WindowerLogic",
+    "ZERO_TD",
+    "collect_window",
+    "count_window",
+    "fold_window",
+    "join_window",
+    "max_window",
+    "mean_window",
+    "min_window",
+    "reduce_window",
+    "stats_window",
+    "window",
+]
+
+
+# --------------------------------------------------------------------------
+# Clocks
+# --------------------------------------------------------------------------
+
+
+class ClockLogic(ABC, Generic[V, S]):
+    """Instance of a clock on a single key; assigns timestamps and
+    tracks the watermark.  Watermarks must never go backwards."""
+
+    @abstractmethod
+    def before_batch(self) -> None:
+        """Prepare for a batch of incoming values (e.g. sample the
+        system clock once per batch)."""
+        ...
+
+    @abstractmethod
+    def on_item(self, value: V) -> Tuple[datetime, datetime]:
+        """Return ``(value_timestamp, current_watermark)``."""
+        ...
+
+    def on_items(
+        self, values: List[V]
+    ) -> List[Tuple[datetime, datetime]]:
+        """Batch form of :meth:`on_item`; must be equivalent to
+        calling it once per value.  Override for speed — the default
+        just loops."""
+        on_item = self.on_item
+        return [on_item(v) for v in values]
+
+    @abstractmethod
+    def on_notify(self) -> datetime:
+        """Return the current watermark on a timer wakeup."""
+        ...
+
+    @abstractmethod
+    def on_eof(self) -> datetime:
+        """Return the watermark at upstream EOF; return
+        :data:`UTC_MAX` to close all windows on EOF."""
+        ...
+
+    @abstractmethod
+    def to_system_utc(self, timestamp: datetime) -> Optional[datetime]:
+        """Convert a clock timestamp into the system time the engine
+        should wake up at; ``None`` disables timer wakeups."""
+        ...
+
+    @abstractmethod
+    def snapshot(self) -> S:
+        """Immutable copy of state for recovery."""
+        ...
+
+
+class Clock(ABC, Generic[V, S]):
+    """A definition of time for windowing operators."""
+
+    @abstractmethod
+    def build(self, resume_state: Optional[S]) -> ClockLogic[V, S]:
+        """Construct a new clock logic for a key (or resume one)."""
+        ...
+
+
+@dataclass
+class _SystemClockLogic(ClockLogic[Any, None]):
+    now_getter: Callable[[], datetime]
+    _now: datetime = field(init=False)
+
+    def __post_init__(self) -> None:
+        self._now = self.now_getter()
+
+    def before_batch(self) -> None:
+        self._now = self.now_getter()
+
+    def on_item(self, value: Any) -> Tuple[datetime, datetime]:
+        return (self._now, self._now)
+
+    def on_notify(self) -> datetime:
+        self._now = self.now_getter()
+        return self._now
+
+    def on_eof(self) -> datetime:
+        return UTC_MAX
+
+    def to_system_utc(self, timestamp: datetime) -> Optional[datetime]:
+        return timestamp
+
+    def snapshot(self) -> None:
+        return None
+
+
+@dataclass
+class SystemClock(Clock[Any, None]):
+    """Use the current system time as the timestamp of each value.
+
+    The watermark is the current system time; at EOF it jumps to
+    :data:`UTC_MAX` so all windows close.
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> fake_now = datetime(2024, 1, 1, tzinfo=timezone.utc)
+    >>> clock = win.SystemClock(now_getter=lambda: fake_now)
+    >>> logic = clock.build(None)
+    >>> logic.before_batch()
+    >>> logic.on_item("anything")
+    (datetime.datetime(2024, 1, 1, 0, 0, tzinfo=datetime.timezone.utc), \
+datetime.datetime(2024, 1, 1, 0, 0, tzinfo=datetime.timezone.utc))
+    """
+
+    now_getter: Callable[[], datetime] = _get_system_utc
+
+    def build(self, resume_state: None) -> _SystemClockLogic:
+        return _SystemClockLogic(self.now_getter)
+
+
+@dataclass
+class _EventClockState:
+    system_time_of_max_event: datetime
+    watermark_base: datetime
+
+
+@dataclass
+class _EventClockLogic(ClockLogic[V, _EventClockState]):
+    now_getter: Callable[[], datetime]
+    ts_getter: Callable[[V], datetime]
+    to_system: Callable[[datetime], Optional[datetime]]
+    wait_for_system_duration: timedelta
+    state: Optional[_EventClockState] = None
+    _system_now: datetime = field(init=False)
+
+    def __post_init__(self) -> None:
+        self._system_now = self.now_getter()
+        if self.state is None:
+            self.state = _EventClockState(
+                system_time_of_max_event=self._system_now,
+                watermark_base=UTC_MIN,
+            )
+
+    def _watermark(self) -> datetime:
+        assert self.state is not None
+        # Watermark advances with elapsed system time since the max
+        # event was seen, so idle streams still make progress.
+        return self.state.watermark_base + (
+            self._system_now - self.state.system_time_of_max_event
+        )
+
+    def before_batch(self) -> None:
+        # Clamp: never let "now" regress (NTP adjustments etc.); a
+        # stalled clock holds the watermark steady rather than
+        # violating monotonicity.
+        system_now = self.now_getter()
+        if system_now > self._system_now:
+            self._system_now = system_now
+
+    def on_item(self, value: V) -> Tuple[datetime, datetime]:
+        assert self.state is not None
+        ts = self.ts_getter(value)
+        watermark = self._watermark()
+        try:
+            new_base = ts - self.wait_for_system_duration
+        except OverflowError:
+            # Unrepresentable; keep the old base so the watermark
+            # keeps advancing with system time without regressing.
+            return ts, watermark
+        if new_base > watermark:
+            self.state.watermark_base = new_base
+            self.state.system_time_of_max_event = self._system_now
+            return ts, new_base
+        return ts, watermark
+
+    def on_items(
+        self, values: List[V]
+    ) -> List[Tuple[datetime, datetime]]:
+        # The per-item hot path flattened: the watermark is a local
+        # (no datetime re-construction per item) and the state writes
+        # happen once at the end.  `_system_now` is constant within a
+        # batch, so deferring the base/system-time write preserves
+        # `on_item`'s exact per-item watermarks and final state.
+        st = self.state
+        assert st is not None
+        now = self._system_now
+        watermark = self._watermark()
+        wait = self.wait_for_system_duration
+        get = self.ts_getter
+        out: List[Tuple[datetime, datetime]] = []
+        append = out.append
+        base_advanced = False
+        for v in values:
+            ts = get(v)
+            try:
+                new_base = ts - wait
+            except OverflowError:
+                append((ts, watermark))
+                continue
+            if new_base > watermark:
+                watermark = new_base
+                base_advanced = True
+            append((ts, watermark))
+        if base_advanced:
+            st.watermark_base = watermark
+            st.system_time_of_max_event = now
+        return out
+
+    def on_notify(self) -> datetime:
+        self.before_batch()
+        return self._watermark()
+
+    def on_eof(self) -> datetime:
+        return UTC_MAX
+
+    def to_system_utc(self, timestamp: datetime) -> Optional[datetime]:
+        return self.to_system(timestamp)
+
+    def snapshot(self) -> _EventClockState:
+        return copy.deepcopy(self.state)  # type: ignore[arg-type]
+
+
+@dataclass
+class EventClock(Clock[V, _EventClockState]):
+    """Use a timestamp embedded within each value.
+
+    The watermark is the largest timestamp seen so far, minus
+    ``wait_for_system_duration``, plus the system time elapsed since
+    that value was seen.  Values are processed correctly as long as
+    they are not out-of-order by more than the waiting duration.
+
+    :arg ts_getter: Called once per value to get its (timezone-aware,
+        UTC) timestamp.  Device-tier note: when values carry their own
+        timestamp (bare ``datetime`` items or ``TsValue``), the
+        engine's itemized promotion reads that timestamp directly and
+        verifies the getter agrees on a spread sample of each batch —
+        a getter that *transforms* timestamps (rather than reading the
+        value's own) nonuniformly within a batch must not be paired
+        with those promotable shapes (use a wrapper value type or
+        pre-transform upstream).
+    :arg wait_for_system_duration: How long to wait for out-of-order
+        values after seeing a timestamp.
+    :arg now_getter: Source of "system" time; defaults to the current
+        UTC time.  Override for deterministic tests.
+    :arg to_system_utc: Map a window-close timestamp to the system
+        time the engine should wake up at; ``None`` return disables
+        timer-driven closes (then only new values or EOF close
+        windows).
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> fake_now = datetime(2024, 6, 1, tzinfo=timezone.utc)
+    >>> clock = win.EventClock(
+    ...     ts_getter=lambda v: v["at"],
+    ...     wait_for_system_duration=timedelta(seconds=10),
+    ...     now_getter=lambda: fake_now,
+    ... )
+    >>> logic = clock.build(None)
+    >>> logic.before_batch()
+    >>> ts, watermark = logic.on_item(
+    ...     {"at": datetime(2024, 1, 1, tzinfo=timezone.utc)}
+    ... )
+    >>> ts
+    datetime.datetime(2024, 1, 1, 0, 0, tzinfo=datetime.timezone.utc)
+    >>> watermark == ts - timedelta(seconds=10)
+    True
+    """
+
+    ts_getter: Callable[[V], datetime]
+    wait_for_system_duration: timedelta
+    now_getter: Callable[[], datetime] = _get_system_utc
+    to_system_utc: Callable[[datetime], Optional[datetime]] = _identity
+
+    def build(
+        self, resume_state: Optional[_EventClockState]
+    ) -> _EventClockLogic[V]:
+        return _EventClockLogic(
+            self.now_getter,
+            self.ts_getter,
+            self.to_system_utc,
+            self.wait_for_system_duration,
+            resume_state,
+        )
+
+
+# --------------------------------------------------------------------------
+# Windowers
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class WindowMetadata:
+    """Metadata about a window: open (inclusive) and close (exclusive)
+    times, plus the ids of any windows merged into it.
+
+    Emitted on the ``meta`` stream of :class:`WindowOut` when each
+    window closes:
+
+    >>> from datetime import datetime, timezone
+    >>> from bytewax_tpu_torch.operators.windowing import WindowMetadata
+    >>> md = WindowMetadata(
+    ...     open_time=datetime(2024, 1, 1, tzinfo=timezone.utc),
+    ...     close_time=datetime(2024, 1, 1, 0, 1, tzinfo=timezone.utc),
+    ... )
+    >>> md.merged_ids
+    set()
+    """
+
+    open_time: datetime
+    close_time: datetime
+    merged_ids: Set[int] = field(default_factory=set)
+
+
+class WindowerLogic(ABC, Generic[S]):
+    """Instance of a windower on a single key; maps timestamps to
+    window ids and manages window lifetimes."""
+
+    @abstractmethod
+    def open_for(self, timestamp: datetime) -> Iterable[int]:
+        """Return the ids of all windows this (non-late) timestamp
+        belongs to, creating them if needed."""
+        ...
+
+    @abstractmethod
+    def late_for(self, timestamp: datetime) -> Iterable[int]:
+        """Return the ids of the windows a late timestamp would have
+        belonged to (for the ``late`` output stream)."""
+        ...
+
+    @abstractmethod
+    def merged(self) -> Iterable[Tuple[int, int]]:
+        """Drain and return ``(original_id, merged_into_id)`` pairs
+        for windows merged since the last call."""
+        ...
+
+    @abstractmethod
+    def close_for(
+        self, watermark: datetime
+    ) -> Iterable[Tuple[int, WindowMetadata]]:
+        """Drain and return all windows closed as-of the watermark."""
+        ...
+
+    @abstractmethod
+    def notify_at(self) -> Optional[datetime]:
+        """Next timestamp at which a window could close."""
+        ...
+
+    @abstractmethod
+    def is_empty(self) -> bool:
+        """Whether this key's windower state can be discarded."""
+        ...
+
+    @abstractmethod
+    def snapshot(self) -> S:
+        """Immutable copy of state for recovery."""
+        ...
+
+
+class Windower(ABC, Generic[S]):
+    """A definition of how values are grouped into windows."""
+
+    @abstractmethod
+    def build(self, resume_state: Optional[S]) -> WindowerLogic[S]:
+        """Construct a new windower logic for a key (or resume one)."""
+        ...
+
+
+@dataclass
+class _SlidingWindowerState:
+    opened: Dict[int, WindowMetadata] = field(default_factory=dict)
+
+
+@dataclass
+class _SlidingWindowerLogic(WindowerLogic[_SlidingWindowerState]):
+    length: timedelta
+    offset: timedelta
+    align_to: datetime
+    state: _SlidingWindowerState
+    # One-element timestamp->ids memo: real streams carry runs of
+    # identical (e.g. second-granularity) timestamps, and the id
+    # arithmetic is the per-item hot spot.  Not part of the snapshot.
+    _memo_ts: Optional[datetime] = field(default=None, compare=False)
+    _memo_ids: List[int] = field(default_factory=list, compare=False)
+
+    def intersecting_ids(self, timestamp: datetime) -> List[int]:
+        # Window i spans [align_to + i*offset, align_to + i*offset +
+        # length); pure integer arithmetic — the device tier computes the
+        # same ids vectorized on device.
+        since = timestamp - self.align_to
+        if self.offset == self.length:
+            # Tumbling: exactly one window.  floor((since-len)/off)+1
+            # == floor(since/off) when off == len, so one floordiv
+            # (timedelta // timedelta is the per-item hot spot).
+            return [since // self.offset]
+        first = (since - self.length) // self.offset + 1
+        last = since // self.offset
+        return list(range(first, last + 1))
+
+    def _meta_for(self, window_id: int) -> WindowMetadata:
+        open_time = self.align_to + self.offset * window_id
+        return WindowMetadata(open_time, open_time + self.length)
+
+    def open_for(self, timestamp: datetime) -> List[int]:
+        if timestamp == self._memo_ts:
+            # Copy on hit: callers own the returned list (the memo
+            # must never alias caller-visible state).
+            ids = list(self._memo_ids)
+        else:
+            ids = self.intersecting_ids(timestamp)
+            self._memo_ts = timestamp
+            self._memo_ids = list(ids)
+        opened = self.state.opened
+        for window_id in ids:
+            if window_id not in opened:
+                opened[window_id] = self._meta_for(window_id)
+        return ids
+
+    def late_for(self, timestamp: datetime) -> List[int]:
+        # Shares open_for's one-element memo: the ids are pure
+        # arithmetic on the timestamp, so the same entry serves both
+        # (late replays carry runs of equal second-granularity
+        # timestamps just like on-time streams do).
+        if timestamp == self._memo_ts:
+            return list(self._memo_ids)
+        ids = self.intersecting_ids(timestamp)
+        self._memo_ts = timestamp
+        self._memo_ids = list(ids)
+        return ids
+
+    def merged(self) -> Iterable[Tuple[int, int]]:
+        return _EMPTY
+
+    def close_for(
+        self, watermark: datetime
+    ) -> List[Tuple[int, WindowMetadata]]:
+        closed = [
+            (window_id, meta)
+            for window_id, meta in self.state.opened.items()
+            if meta.close_time <= watermark
+        ]
+        for window_id, _meta in closed:
+            del self.state.opened[window_id]
+        return closed
+
+    def notify_at(self) -> Optional[datetime]:
+        return min(
+            (meta.close_time for meta in self.state.opened.values()),
+            default=None,
+        )
+
+    def is_empty(self) -> bool:
+        return not self.state.opened
+
+    def snapshot(self) -> _SlidingWindowerState:
+        return copy.deepcopy(self.state)
+
+
+@dataclass
+class SlidingWindower(Windower[_SlidingWindowerState]):
+    """Possibly-overlapping fixed-length windows, one every ``offset``.
+
+    Windows start at ``align_to + i * offset`` for every integer ``i``
+    and span ``length``.  If ``offset < length`` windows overlap (a
+    value falls in several); if ``offset == length`` this is a
+    tumbling window.
+
+    :arg length: Length of each window.
+    :arg offset: Time between window starts.
+    :arg align_to: Align windows to this instant (may be in the past
+        or future; only the phase matters).
+
+    A 10-minute window starting every 5 minutes — each timestamp
+    falls into two overlapping windows:
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> windower = win.SlidingWindower(
+    ...     length=timedelta(minutes=10),
+    ...     offset=timedelta(minutes=5),
+    ...     align_to=datetime(2024, 1, 1, tzinfo=timezone.utc),
+    ... )
+    >>> logic = windower.build(None)
+    >>> sorted(logic.open_for(
+    ...     datetime(2024, 1, 1, 0, 7, tzinfo=timezone.utc)
+    ... ))
+    [0, 1]
+    """
+
+    length: timedelta
+    offset: timedelta
+    align_to: datetime
+
+    def __post_init__(self) -> None:
+        if self.offset <= ZERO_TD:
+            msg = "offset must be positive"
+            raise ValueError(msg)
+        if self.offset > self.length:
+            # Timestamps in the gaps between windows would silently
+            # belong to no window at all.
+            msg = (
+                "sliding window `offset` can't be longer than `length`; "
+                "there would be gaps between windows that values "
+                "silently fall into; use a TumblingWindower for "
+                "non-overlapping windows"
+            )
+            raise ValueError(msg)
+
+    def build(
+        self, resume_state: Optional[_SlidingWindowerState]
+    ) -> _SlidingWindowerLogic:
+        return _SlidingWindowerLogic(
+            self.length,
+            self.offset,
+            self.align_to,
+            resume_state if resume_state is not None else _SlidingWindowerState(),
+        )
+
+
+@dataclass
+class TumblingWindower(Windower[_SlidingWindowerState]):
+    """Contiguous non-overlapping fixed-length windows.
+
+    Equivalent to a :class:`SlidingWindower` with ``offset == length``.
+
+    :arg length: Length of each window.
+    :arg align_to: Align window boundaries to this instant.
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> windower = win.TumblingWindower(
+    ...     length=timedelta(minutes=1),
+    ...     align_to=datetime(2024, 1, 1, tzinfo=timezone.utc),
+    ... )
+    >>> logic = windower.build(None)
+    >>> list(logic.open_for(datetime(2024, 1, 1, 0, 3, 30, tzinfo=timezone.utc)))
+    [3]
+    """
+
+    length: timedelta
+    align_to: datetime
+
+    def __post_init__(self) -> None:
+        if self.length <= ZERO_TD:
+            msg = "length must be positive"
+            raise ValueError(msg)
+
+    def build(
+        self, resume_state: Optional[_SlidingWindowerState]
+    ) -> _SlidingWindowerLogic:
+        return _SlidingWindowerLogic(
+            self.length,
+            self.length,
+            self.align_to,
+            resume_state if resume_state is not None else _SlidingWindowerState(),
+        )
+
+
+@dataclass
+class _SessionWindowerState:
+    next_id: int = 0
+    sessions: Dict[int, WindowMetadata] = field(default_factory=dict)
+    merge_queue: List[Tuple[int, int]] = field(default_factory=list)
+
+
+@dataclass
+class _SessionWindowerLogic(WindowerLogic[_SessionWindowerState]):
+    gap: timedelta
+    state: _SessionWindowerState
+
+    def _merge_overlapping(self) -> None:
+        """Merge any sessions now within ``gap`` of each other.
+
+        Scans sessions in open-time order; a session starting within
+        the gap after the previous one's close is absorbed into it.
+        """
+        if len(self.state.sessions) < 2:
+            return
+        by_open = sorted(
+            self.state.sessions.items(), key=lambda kv: kv[1].open_time
+        )
+        keep_id, keep_meta = by_open[0]
+        for this_id, this_meta in by_open[1:]:
+            if this_meta.open_time - keep_meta.close_time <= self.gap:
+                keep_meta.close_time = max(
+                    keep_meta.close_time, this_meta.close_time
+                )
+                keep_meta.merged_ids.add(this_id)
+                self.state.merge_queue.append((this_id, keep_id))
+                del self.state.sessions[this_id]
+            else:
+                keep_id, keep_meta = this_id, this_meta
+
+    def open_for(self, timestamp: datetime) -> Iterable[int]:
+        for window_id, meta in self.state.sessions.items():
+            if meta.open_time <= timestamp <= meta.close_time:
+                # Inside an existing session; boundaries unchanged so
+                # no merges are possible.
+                return (window_id,)
+            if ZERO_TD < meta.open_time - timestamp <= self.gap:
+                meta.open_time = timestamp
+                self._merge_overlapping()
+                return (window_id,)
+            if ZERO_TD < timestamp - meta.close_time <= self.gap:
+                meta.close_time = timestamp
+                self._merge_overlapping()
+                return (window_id,)
+        window_id = self.state.next_id
+        self.state.next_id += 1
+        self.state.sessions[window_id] = WindowMetadata(timestamp, timestamp)
+        return (window_id,)
+
+    def late_for(self, timestamp: datetime) -> Iterable[int]:
+        # Session membership depends on other values, so a late value
+        # can't name a specific session.
+        return (LATE_SESSION_ID,)
+
+    def merged(self) -> Iterable[Tuple[int, int]]:
+        drained = self.state.merge_queue
+        self.state.merge_queue = []
+        return drained
+
+    def close_for(
+        self, watermark: datetime
+    ) -> List[Tuple[int, WindowMetadata]]:
+        try:
+            close_after = watermark - self.gap
+        except OverflowError:
+            close_after = UTC_MIN
+        closed = [
+            (window_id, meta)
+            for window_id, meta in self.state.sessions.items()
+            if meta.close_time < close_after
+        ]
+        for window_id, _meta in closed:
+            del self.state.sessions[window_id]
+        return closed
+
+    def notify_at(self) -> Optional[datetime]:
+        min_close = min(
+            (meta.close_time for meta in self.state.sessions.values()),
+            default=None,
+        )
+        return min_close + self.gap if min_close is not None else None
+
+    def is_empty(self) -> bool:
+        # Never discard: re-using session ids after discard would give
+        # downstream joins wrong window metadata.
+        return False
+
+    def snapshot(self) -> _SessionWindowerState:
+        return copy.deepcopy(self.state)
+
+
+@dataclass
+class SessionWindower(Windower[_SessionWindowerState]):
+    """Windows that grow while values arrive within a gap of each
+    other and close when the stream goes quiet for ``gap``.
+
+    :arg gap: Maximum inactivity between values in a session.
+
+    Two bursts separated by more than the gap form two sessions:
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators as op
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> from bytewax_tpu_torch.dataflow import Dataflow
+    >>> from bytewax_tpu_torch.testing import TestingSink, TestingSource, run_main
+    >>> t0 = datetime(2024, 1, 1, tzinfo=timezone.utc)
+    >>> inp = [
+    ...     ("k", (t0, 1)),
+    ...     ("k", (t0 + timedelta(seconds=5), 2)),
+    ...     ("k", (t0 + timedelta(minutes=5), 3)),
+    ... ]
+    >>> clock = win.EventClock(
+    ...     ts_getter=lambda v: v[0], wait_for_system_duration=timedelta(0)
+    ... )
+    >>> flow = Dataflow("session_eg")
+    >>> s = op.input("inp", flow, TestingSource(inp))
+    >>> wo = win.collect_window(
+    ...     "sessions", s, clock, win.SessionWindower(gap=timedelta(minutes=1))
+    ... )
+    >>> out = []
+    >>> op.output("out", wo.down, TestingSink(out))
+    >>> run_main(flow)
+    >>> [[v for _t, v in vs] for _k, (_wid, vs) in sorted(out)]
+    [[1, 2], [3]]
+    """
+
+    gap: timedelta
+
+    def __post_init__(self) -> None:
+        if self.gap <= ZERO_TD:
+            msg = "gap must be positive"
+            raise ValueError(msg)
+
+    def build(
+        self, resume_state: Optional[_SessionWindowerState]
+    ) -> _SessionWindowerLogic:
+        return _SessionWindowerLogic(
+            self.gap,
+            resume_state if resume_state is not None else _SessionWindowerState(),
+        )
+
+
+# --------------------------------------------------------------------------
+# Window logic + the window operator
+# --------------------------------------------------------------------------
+
+
+class WindowLogic(ABC, Generic[V, W, S]):
+    """Accumulates values within one open window of one key."""
+
+    @abstractmethod
+    def on_value(self, value: V) -> Iterable[W]:
+        """Called on each new value; may emit early results."""
+        ...
+
+    @abstractmethod
+    def on_merge(self, original: Self) -> Iterable[W]:
+        """Called when another window merges into this one; absorb
+        ``original``'s state."""
+        ...
+
+    @abstractmethod
+    def on_close(self) -> Iterable[W]:
+        """Called when this window closes; emit final results."""
+        ...
+
+    @abstractmethod
+    def snapshot(self) -> S:
+        """Immutable copy of state for recovery."""
+        ...
+
+
+_WindowQueueEntry: TypeAlias = Tuple[V, datetime]
+
+_WindowEvent: TypeAlias = Tuple[int, str, Any]  # (window_id, "E"|"L"|"M", obj)
+
+
+@dataclass(frozen=True)
+class _WindowSnapshot(Generic[V, SC, SW, S]):
+    clock_state: SC
+    windower_state: SW
+    logic_states: Dict[int, S]
+    queue: List[_WindowQueueEntry]
+
+
+@dataclass
+class _WindowLogic(
+    StatefulBatchLogic[V, _WindowEvent, "_WindowSnapshot[V, SC, SW, S]"]
+):
+    """Orchestrates clock + windower + per-window logics for one key.
+
+    Events are tagged ``(window_id, type, payload)`` with type ``"E"``
+    (emit), ``"L"`` (late value), ``"M"`` (close metadata); the
+    :func:`window` operator fans them out into the three output
+    streams.
+    """
+
+    clock: ClockLogic[V, Any]
+    windower: WindowerLogic[Any]
+    builder: Callable[[Optional[Any]], WindowLogic[V, Any, Any]]
+    ordered: bool
+    logics: Dict[int, WindowLogic] = field(default_factory=dict)
+    queue: List[_WindowQueueEntry] = field(default_factory=list)
+    _last_watermark: datetime = UTC_MIN
+    #: Whether `queue` is currently non-decreasing in timestamp (the
+    #: steady state for in-order streams) — lets `_flush` slice the
+    #: due prefix instead of partitioning + sorting.  Not snapshotted;
+    #: recomputed on resume.
+    _queue_sorted: bool = field(default=True, compare=False)
+
+    def __post_init__(self) -> None:
+        q = self.queue
+        self._queue_sorted = all(
+            q[i][1] <= q[i + 1][1] for i in range(len(q) - 1)
+        )
+
+    def _insert(self, entries: List[_WindowQueueEntry]) -> Iterable[_WindowEvent]:
+        logics = self.logics
+        open_for = self.windower.open_for
+        builder = self.builder
+        for value, timestamp in entries:
+            for window_id in open_for(timestamp):
+                logic = logics.get(window_id)
+                if logic is None:
+                    logic = builder(None)
+                    logics[window_id] = logic
+                for w in logic.on_value(value):
+                    yield (window_id, "E", w)
+
+    def _apply_merges(self) -> Iterable[_WindowEvent]:
+        for orig_id, into_id in self.windower.merged():
+            if orig_id != into_id:
+                orig = self.logics.pop(orig_id)
+                into = self.logics[into_id]
+                for w in into.on_merge(orig):
+                    yield (into_id, "E", w)
+
+    def _apply_closes(self, watermark: datetime) -> Iterable[_WindowEvent]:
+        for window_id, meta in self.windower.close_for(watermark):
+            logic = self.logics.pop(window_id)
+            for w in logic.on_close():
+                yield (window_id, "E", w)
+            yield (window_id, "M", meta)
+
+    def _flush(self, watermark: datetime) -> Iterable[_WindowEvent]:
+        queue = self.queue
+        if not self.ordered or not queue:
+            due, self.queue = queue, []
+        elif self._queue_sorted:
+            if queue[-1][1] <= watermark:
+                due, self.queue = queue, []
+            else:
+                # Slice the due prefix (first index with ts >
+                # watermark); equal timestamps keep upstream order.
+                lo, hi = 0, len(queue)
+                while lo < hi:
+                    mid = (lo + hi) // 2
+                    if queue[mid][1] <= watermark:
+                        lo = mid + 1
+                    else:
+                        hi = mid
+                due, self.queue = queue[:lo], queue[lo:]
+        else:
+            due, self.queue = partition(
+                queue, lambda entry: entry[1] <= watermark
+            )
+            due.sort(key=lambda entry: entry[1])
+            if not self.queue:
+                self._queue_sorted = True
+        yield from self._insert(due)
+        yield from self._apply_merges()
+        yield from self._apply_closes(watermark)
+
+    def _is_empty(self) -> bool:
+        return (
+            not self.logics and not self.queue and self.windower.is_empty()
+        )
+
+    def on_batch(self, values: List[V]) -> Tuple[Iterable[_WindowEvent], bool]:
+        self.clock.before_batch()
+        if (
+            self.ordered
+            and not self.queue
+            and type(self.clock) is _EventClockLogic
+            # With any nonzero wait (either sign) the watermark is
+            # offset from every timestamp, so the fast path's
+            # `ts == watermark` test can never hold — don't pay a
+            # doomed attempt per batch.
+            and self.clock.wait_for_system_duration == ZERO_TD
+            and type(self.windower) is _SlidingWindowerLogic
+            and self.windower.offset == self.windower.length
+        ):
+            return self._on_batch_tumbling_inorder(values)
+        return self._on_batch_general(values)
+
+    def _on_batch_general(
+        self, values: List[V]
+    ) -> Tuple[Iterable[_WindowEvent], bool]:
+        events: List[_WindowEvent] = []
+        pairs = self.clock.on_items(values)
+        if pairs:
+            watermark = pairs[-1][1]
+            assert watermark >= self._last_watermark
+            self._last_watermark = watermark
+        else:
+            watermark = self._last_watermark
+        queue = self.queue
+        append = queue.append
+        append_event = events.append
+        tail_ts = queue[-1][1] if queue else None
+        q_sorted = self._queue_sorted
+        late_for = self.windower.late_for
+        for value, (ts, wm) in zip(values, pairs):
+            if ts < wm:
+                # Direct append for the common single-window case: a
+                # late replay is per-item territory, so the genexpr
+                # frame per item dominates it.  `late_for` is only
+                # promised to be Iterable — materialize generators.
+                wids = late_for(ts)
+                if not isinstance(wids, (list, tuple)):
+                    wids = list(wids)
+                if len(wids) == 1:
+                    append_event((wids[0], "L", value))
+                else:
+                    events.extend(
+                        (window_id, "L", value) for window_id in wids
+                    )
+            else:
+                if q_sorted and tail_ts is not None and ts < tail_ts:
+                    q_sorted = False
+                tail_ts = ts
+                append((value, ts))
+        self._queue_sorted = q_sorted
+        events.extend(self._flush(watermark))
+        return (events, self._is_empty())
+
+    def _on_batch_tumbling_inorder(
+        self, values: List[V]
+    ) -> Tuple[Iterable[_WindowEvent], bool]:
+        """Fused fast path for the streaming steady state: event clock,
+        tumbling windows, ordered mode, empty queue, and every item
+        on time and in order (``ts == watermark`` after its own clock
+        update, which `_EventClockLogic` guarantees exactly for an
+        in-order stream).  One loop folds each item straight into its
+        window — no per-item tuples, queue traffic, or window-id
+        arithmetic (the current window's bounds are two datetime
+        compares).  The first item that breaks the profile (late,
+        out of order, or still ahead of the watermark under a nonzero
+        wait) falls back to the general path for the batch remainder,
+        which reproduces the exact general semantics."""
+        clock = cast(_EventClockLogic, self.clock)
+        st = clock.state
+        assert st is not None
+        now = clock._system_now
+        watermark = clock._watermark()
+        wait = clock.wait_for_system_duration
+        get = clock.ts_getter
+        windower = cast(_SlidingWindowerLogic, self.windower)
+        offset = windower.offset
+        align = windower.align_to
+        opened = windower.state.opened
+        logics = self.logics
+        builder = self.builder
+        events: List[_WindowEvent] = []
+        append_event = events.append
+        base_advanced = False
+        win_start: Optional[datetime] = None
+        win_end: Optional[datetime] = None
+        cur_wid = -1
+        cur_logic: Optional[WindowLogic] = None
+        n = len(values)
+        i = 0
+        while i < n:
+            value = values[i]
+            ts = get(value)
+            ok = True
+            try:
+                new_base = ts - wait
+            except OverflowError:
+                ok = False
+            else:
+                if new_base > watermark:
+                    watermark = new_base
+                    base_advanced = True
+                if ts != watermark:
+                    ok = False
+            if not ok:
+                break
+            if win_start is not None and win_start <= ts < win_end:
+                wid = cur_wid
+                logic = cur_logic
+            else:
+                wid = (ts - align) // offset
+                win_start = align + offset * wid
+                win_end = win_start + offset
+                if wid not in opened:
+                    opened[wid] = windower._meta_for(wid)
+                logic = logics.get(wid)
+                if logic is None:
+                    logic = builder(None)
+                    logics[wid] = logic
+                cur_wid = wid
+                cur_logic = logic
+            for w in logic.on_value(value):
+                append_event((wid, "E", w))
+            i += 1
+        # Persist clock progress before either exit so the fallback
+        # (and the next batch) sees the advanced watermark.
+        if base_advanced:
+            st.watermark_base = watermark
+            st.system_time_of_max_event = now
+        if i < n:
+            rest = values if i == 0 else values[i:]
+            rest_events, done = self._on_batch_general(rest)
+            events.extend(rest_events)
+            return (events, done)
+        if watermark > self._last_watermark:
+            self._last_watermark = watermark
+        events.extend(self._apply_closes(watermark))
+        return (events, self._is_empty())
+
+    def on_notify(self) -> Tuple[Iterable[_WindowEvent], bool]:
+        watermark = self.clock.on_notify()
+        assert watermark >= self._last_watermark
+        self._last_watermark = watermark
+        events = list(self._flush(watermark))
+        return (events, self._is_empty())
+
+    def on_eof(self) -> Tuple[Iterable[_WindowEvent], bool]:
+        watermark = self.clock.on_eof()
+        assert watermark >= self._last_watermark
+        self._last_watermark = watermark
+        events = list(self._flush(watermark))
+        return (events, self._is_empty())
+
+    def notify_at(self) -> Optional[datetime]:
+        at = self.windower.notify_at()
+        if self.ordered and self.queue:
+            # In ordered mode a queued value only becomes due once the
+            # watermark passes it; wake up for the earliest.
+            head_at = min(entry[1] for entry in self.queue)
+            at = head_at if at is None else min(at, head_at)
+        if at is not None:
+            at = self.clock.to_system_utc(at)
+        return at
+
+    def snapshot(self) -> "_WindowSnapshot":
+        return _WindowSnapshot(
+            self.clock.snapshot(),
+            self.windower.snapshot(),
+            {wid: logic.snapshot() for wid, logic in self.logics.items()},
+            list(self.queue),
+        )
+
+
+@dataclass(frozen=True)
+class WindowOut(Generic[V, W_co]):
+    """Streams returned from a windowing operator; all sub-keyed by
+    window id."""
+
+    down: KeyedStream[Tuple[int, W_co]]
+    """Values emitted by the window logic."""
+
+    late: KeyedStream[Tuple[int, V]]
+    """Values that arrived behind the watermark for their window."""
+
+    meta: KeyedStream[Tuple[int, WindowMetadata]]
+    """Per-window metadata, emitted once when each window closes
+    (merged-away windows appear in the target's ``merged_ids``)."""
+
+
+@operator
+def window(
+    step_id: str,
+    up: KeyedStream[V],
+    clock: Clock[V, Any],
+    windower: Windower[Any],
+    builder: Callable[[Optional[S]], WindowLogic[V, W, S]],
+    ordered: bool = True,
+) -> WindowOut[V, W]:
+    """Advanced generic windowing operator.
+
+    :arg step_id: Unique ID.
+    :arg up: Keyed upstream.
+    :arg clock: Time definition.
+    :arg windower: Window definition.
+    :arg builder: Called with ``None`` (new window) or that window's
+        resume state to build its :class:`WindowLogic`.
+    :arg ordered: Apply values in timestamp order (at a latency cost)
+        instead of upstream order.  Defaults to ``True``.
+    :returns: :class:`WindowOut`.
+
+    A custom logic that counts values per window:
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators as op
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> from bytewax_tpu_torch.dataflow import Dataflow
+    >>> from bytewax_tpu_torch.testing import TestingSink, TestingSource, run_main
+    >>> class Counter(win.WindowLogic):
+    ...     def __init__(self, resume_state):
+    ...         self.n = resume_state if resume_state is not None else 0
+    ...     def on_value(self, value):
+    ...         self.n += 1
+    ...         return []
+    ...     def on_merge(self, consumed):
+    ...         self.n += consumed.n
+    ...         return []
+    ...     def on_close(self):
+    ...         return [self.n]
+    ...     def snapshot(self):
+    ...         return self.n
+    >>> align = datetime(2022, 1, 1, tzinfo=timezone.utc)
+    >>> clock = win.EventClock(
+    ...     ts_getter=lambda v: v[0], wait_for_system_duration=timedelta(0)
+    ... )
+    >>> windower = win.TumblingWindower(
+    ...     length=timedelta(minutes=1), align_to=align
+    ... )
+    >>> inp = [("k", (align, "x")), ("k", (align + timedelta(seconds=5), "y"))]
+    >>> flow = Dataflow("window_eg")
+    >>> s = op.input("inp", flow, TestingSource(inp))
+    >>> wo = win.window("count", s, clock, windower, Counter)
+    >>> out = []
+    >>> op.output("out", wo.down, TestingSink(out))
+    >>> run_main(flow)
+    >>> out
+    [('k', (0, 2))]
+
+    Reference parity: ``windowing.py:1254``.
+    """
+
+    def shim_builder(
+        resume_state: Optional[_WindowSnapshot],
+    ) -> _WindowLogic:
+        if resume_state is not None:
+            return _WindowLogic(
+                clock.build(resume_state.clock_state),
+                windower.build(resume_state.windower_state),
+                builder,
+                ordered,
+                {
+                    wid: builder(state)
+                    for wid, state in resume_state.logic_states.items()
+                },
+                list(resume_state.queue),
+            )
+        return _WindowLogic(
+            clock.build(None), windower.build(None), builder, ordered
+        )
+
+    events = op.stateful_batch("stateful_batch", up, shim_builder)
+
+    # Batch-level taps (one comprehension per delivery, not a Python
+    # call per event): the events stream is engine-internal, so the
+    # (key, (window_id, type, obj)) shape is guaranteed.
+    def unwrap_emit(k_evs: List) -> List[Tuple[str, Tuple[int, W]]]:
+        return [
+            (k, (window_id, obj))
+            for k, (window_id, typ, obj) in k_evs
+            if typ == "E"
+        ]
+
+    def unwrap_late(k_evs: List) -> List[Tuple[str, Tuple[int, V]]]:
+        return [
+            (k, (window_id, obj))
+            for k, (window_id, typ, obj) in k_evs
+            if typ == "L"
+        ]
+
+    def unwrap_meta(
+        k_evs: List,
+    ) -> List[Tuple[str, Tuple[int, WindowMetadata]]]:
+        return [
+            (k, (window_id, obj))
+            for k, (window_id, typ, obj) in k_evs
+            if typ == "M"
+        ]
+
+    # The unwrap taps are pure fan-out shims; `_prunable` lets the
+    # flatten pass drop any whose output stream is never consumed
+    # (most flows ignore `late`/`meta`, and each live tap costs a
+    # per-event Python pass).
+    downs = cast(
+        KeyedStream,
+        op.flat_map_batch(
+            "unwrap_down", events, unwrap_emit, _prunable=True
+        ),
+    )
+    lates = cast(
+        KeyedStream,
+        op.flat_map_batch(
+            "unwrap_late", events, unwrap_late, _prunable=True
+        ),
+    )
+    metas = cast(
+        KeyedStream,
+        op.flat_map_batch(
+            "unwrap_meta", events, unwrap_meta, _prunable=True
+        ),
+    )
+    return WindowOut(downs, lates, metas)
+
+
+# --------------------------------------------------------------------------
+# Derived windowing operators
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class _FoldWindowLogic(WindowLogic[V, S, S]):
+    folder: Callable[[S, V], S]
+    merger: Callable[[S, S], S]
+    state: S
+
+    def on_value(self, value: V) -> Iterable[S]:
+        self.state = self.folder(self.state, value)
+        return _EMPTY
+
+    def on_merge(self, original: "_FoldWindowLogic") -> Iterable[S]:
+        self.state = self.merger(self.state, original.state)
+        return _EMPTY
+
+    def on_close(self) -> Iterable[S]:
+        return (self.state,)
+
+    def snapshot(self) -> S:
+        return copy.deepcopy(self.state)
+
+
+@operator
+def fold_window(
+    step_id: str,
+    up: KeyedStream[V],
+    clock: Clock[V, Any],
+    windower: Windower[Any],
+    builder: Callable[[], S],
+    folder: Callable[[S, V], S],
+    merger: Callable[[S, S], S],
+    ordered: bool = True,
+) -> WindowOut[V, S]:
+    """Build an empty accumulator per window, combine values into it,
+    emit at window close.
+
+    On the device tier this is the vectorization anchor: commutative
+    folders become device-side segment reductions bucketed by the
+    window-id arithmetic.
+
+    :arg merger: Combines two accumulators when windows merge
+        (session windows).
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators as op
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> from bytewax_tpu_torch.dataflow import Dataflow
+    >>> from bytewax_tpu_torch.testing import TestingSink, TestingSource, run_main
+    >>> align = datetime(2022, 1, 1, tzinfo=timezone.utc)
+    >>> inp = [
+    ...     ("k", (align + timedelta(seconds=1), "a")),
+    ...     ("k", (align + timedelta(seconds=2), "b")),
+    ... ]
+    >>> clock = win.EventClock(
+    ...     ts_getter=lambda v: v[0], wait_for_system_duration=timedelta(hours=1)
+    ... )
+    >>> windower = win.TumblingWindower(
+    ...     length=timedelta(minutes=1), align_to=align
+    ... )
+    >>> flow = Dataflow("fold_window_eg")
+    >>> s = op.input("inp", flow, TestingSource(inp))
+    >>> wo = win.fold_window(
+    ...     "letters", s, clock, windower,
+    ...     list, lambda acc, v: acc + [v[1]], lambda a, b: a + b,
+    ... )
+    >>> out = []
+    >>> op.output("out", wo.down, TestingSink(out))
+    >>> run_main(flow)
+    >>> out
+    [('k', (0, ['a', 'b']))]
+
+    Reference parity: ``windowing.py:1717``.
+    """
+
+    def shim_builder(resume_state: Optional[S]) -> _FoldWindowLogic[V, S]:
+        state = resume_state if resume_state is not None else builder()
+        return _FoldWindowLogic(folder, merger, state)
+
+    return window(
+        "window", up, clock, windower, shim_builder, ordered=ordered
+    )
+
+
+@operator
+def reduce_window(
+    step_id: str,
+    up: KeyedStream[V],
+    clock: Clock[V, Any],
+    windower: Windower[Any],
+    reducer: Callable[[V, V], V],
+) -> WindowOut[V, V]:
+    """Distill all values for a key in a window down to one value.
+
+    Like :func:`fold_window` but the first value is the accumulator.
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators as op
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> from bytewax_tpu_torch.dataflow import Dataflow
+    >>> from bytewax_tpu_torch.testing import TestingSink, TestingSource, run_main
+    >>> align = datetime(2022, 1, 1, tzinfo=timezone.utc)
+    >>> clock = win.EventClock(
+    ...     ts_getter=lambda v: v[0], wait_for_system_duration=timedelta(hours=1)
+    ... )
+    >>> windower = win.TumblingWindower(
+    ...     length=timedelta(minutes=1), align_to=align
+    ... )
+    >>> inp = [
+    ...     ("k", (align + timedelta(seconds=1), 4.0)),
+    ...     ("k", (align + timedelta(seconds=2), 9.0)),
+    ...     ("k", (align + timedelta(seconds=3), 2.0)),
+    ... ]
+    >>> vals_of = lambda s: op.map_value("unwrap", s, lambda p: p[1])
+    >>> flow = Dataflow("reduce_window_eg")
+    >>> s = vals_of(op.input("inp", flow, TestingSource(inp)))
+    >>> # ts getter sees bare floats after unwrap: map them back
+    >>> clock2 = win.EventClock(
+    ...     ts_getter=lambda v: align, wait_for_system_duration=timedelta(hours=1)
+    ... )
+    >>> wo = win.reduce_window("max", s, clock2, windower, max)
+    >>> out = []
+    >>> op.output("out", wo.down, TestingSink(out))
+    >>> run_main(flow)
+    >>> out
+    [('k', (0, 9.0))]
+
+    Reference parity: ``windowing.py:2239``.
+    """
+
+    def shim_folder(s: V, v: V) -> V:
+        return v if s is None else reducer(s, v)
+
+    return fold_window(
+        "fold_window",
+        up,
+        clock,
+        windower,
+        _untyped_none,
+        shim_folder,
+        reducer,
+        ordered=False,
+    )
+
+
+@operator
+def max_window(
+    step_id: str,
+    up: KeyedStream[V],
+    clock: Clock[V, Any],
+    windower: Windower[Any],
+    by=_identity,
+) -> WindowOut[V, V]:
+    """Maximum value per key per window, emitted at window close.
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators as op
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> from bytewax_tpu_torch.dataflow import Dataflow
+    >>> from bytewax_tpu_torch.testing import TestingSink, TestingSource, run_main
+    >>> align = datetime(2022, 1, 1, tzinfo=timezone.utc)
+    >>> clock = win.EventClock(
+    ...     ts_getter=lambda v: v[0], wait_for_system_duration=timedelta(hours=1)
+    ... )
+    >>> windower = win.TumblingWindower(
+    ...     length=timedelta(minutes=1), align_to=align
+    ... )
+    >>> inp = [
+    ...     ("k", (align + timedelta(seconds=1), 4.0)),
+    ...     ("k", (align + timedelta(seconds=2), 9.0)),
+    ...     ("k", (align + timedelta(seconds=3), 2.0)),
+    ... ]
+    >>> vals_of = lambda s: op.map_value("unwrap", s, lambda p: p[1])
+    >>> flow = Dataflow("max_window_eg")
+    >>> s = op.input("inp", flow, TestingSource(inp))
+    >>> wo = win.max_window("max", s, clock, windower, by=lambda p: p[1])
+    >>> out = []
+    >>> op.output("out", wo.down, TestingSink(out))
+    >>> run_main(flow)
+    >>> [(k, (wid, v)) for k, (wid, (_ts, v)) in out]
+    [('k', (0, 9.0))]
+
+    Reference parity: ``windowing.py:2164``.
+    """
+    return reduce_window(
+        "reduce_window", up, clock, windower, lambda a, b: max(a, b, key=by)
+    )
+
+
+@operator
+def min_window(
+    step_id: str,
+    up: KeyedStream[V],
+    clock: Clock[V, Any],
+    windower: Windower[Any],
+    by=_identity,
+) -> WindowOut[V, V]:
+    """Minimum value per key per window, emitted at window close.
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators as op
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> from bytewax_tpu_torch.dataflow import Dataflow
+    >>> from bytewax_tpu_torch.testing import TestingSink, TestingSource, run_main
+    >>> align = datetime(2022, 1, 1, tzinfo=timezone.utc)
+    >>> clock = win.EventClock(
+    ...     ts_getter=lambda v: v[0], wait_for_system_duration=timedelta(hours=1)
+    ... )
+    >>> windower = win.TumblingWindower(
+    ...     length=timedelta(minutes=1), align_to=align
+    ... )
+    >>> inp = [
+    ...     ("k", (align + timedelta(seconds=1), 4.0)),
+    ...     ("k", (align + timedelta(seconds=2), 9.0)),
+    ...     ("k", (align + timedelta(seconds=3), 2.0)),
+    ... ]
+    >>> vals_of = lambda s: op.map_value("unwrap", s, lambda p: p[1])
+    >>> flow = Dataflow("min_window_eg")
+    >>> s = op.input("inp", flow, TestingSource(inp))
+    >>> wo = win.min_window("min", s, clock, windower, by=lambda p: p[1])
+    >>> out = []
+    >>> op.output("out", wo.down, TestingSink(out))
+    >>> run_main(flow)
+    >>> [(k, (wid, v)) for k, (wid, (_ts, v)) in out]
+    [('k', (0, 2.0))]
+
+    Reference parity: ``windowing.py:2211``.
+    """
+    return reduce_window(
+        "reduce_window", up, clock, windower, lambda a, b: min(a, b, key=by)
+    )
+
+
+def _window_fold_op(up, clock, windower, fold) -> "WindowOut":
+    """fold_window with a ``bytewax_tpu_torch.xla.WindowFold`` (lowered to
+    one device scatter-combine per micro-batch) plus its finalizer
+    applied to the emitted accumulators."""
+    wo = fold_window(
+        "fold_window",
+        up,
+        clock,
+        windower,
+        fold.make_acc,
+        fold,
+        fold.merge,
+        ordered=False,
+    )
+    down = op.map_value(
+        "finalize", wo.down, lambda p: (p[0], fold.finalize(p[1]))
+    )
+    return WindowOut(down, wo.late, wo.meta)
+
+
+@operator
+def mean_window(
+    step_id: str,
+    up: KeyedStream[V],
+    clock: Clock[V, Any],
+    windower: Windower[Any],
+) -> WindowOut[V, float]:
+    """Arithmetic mean of the values per key per window, emitted at
+    window close.
+
+    The fold keeps a ``(sum, count)`` accumulator the engine lowers
+    to one device scatter-combine per micro-batch (see
+    ``bytewax_tpu_torch.xla.MEAN``); no reference counterpart — a TPU-tier
+    extension of the ``max_window``/``min_window`` family.
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators as op
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> from bytewax_tpu_torch import xla
+    >>> from bytewax_tpu_torch.dataflow import Dataflow
+    >>> from bytewax_tpu_torch.testing import TestingSink, TestingSource, run_main
+    >>> align = datetime(2022, 1, 1, tzinfo=timezone.utc)
+    >>> inp = [
+    ...     ("k", xla.TsValue(4.0, align + timedelta(seconds=1))),
+    ...     ("k", xla.TsValue(9.0, align + timedelta(seconds=2))),
+    ...     ("k", xla.TsValue(2.0, align + timedelta(seconds=3))),
+    ... ]
+    >>> clock = win.EventClock(
+    ...     ts_getter=xla.column_ts, wait_for_system_duration=timedelta(hours=1)
+    ... )
+    >>> windower = win.TumblingWindower(
+    ...     length=timedelta(minutes=1), align_to=align
+    ... )
+    >>> flow = Dataflow("mean_window_eg")
+    >>> s = op.input("inp", flow, TestingSource(inp))
+    >>> wo = win.mean_window("mean", s, clock, windower)
+    >>> out = []
+    >>> op.output("out", wo.down, TestingSink(out))
+    >>> run_main(flow)
+    >>> out
+    [('k', (0, 5.0))]
+    """
+    from bytewax_tpu_torch.xla import MEAN
+
+    return _window_fold_op(up, clock, windower, MEAN)
+
+
+@operator
+def stats_window(
+    step_id: str,
+    up: KeyedStream[V],
+    clock: Clock[V, Any],
+    windower: Windower[Any],
+) -> WindowOut[V, tuple]:
+    """Min/mean/max/count per key per window in one pass (the 1BRC
+    shape, windowed), emitted at window close as ``(min, mean, max,
+    count)``.
+
+    The fold keeps a ``(min, max, sum, count)`` accumulator the
+    engine lowers to one device scatter-combine per micro-batch (see
+    ``bytewax_tpu_torch.xla.STATS``).
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators as op
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> from bytewax_tpu_torch import xla
+    >>> from bytewax_tpu_torch.dataflow import Dataflow
+    >>> from bytewax_tpu_torch.testing import TestingSink, TestingSource, run_main
+    >>> align = datetime(2022, 1, 1, tzinfo=timezone.utc)
+    >>> inp = [
+    ...     ("k", xla.TsValue(4.0, align + timedelta(seconds=1))),
+    ...     ("k", xla.TsValue(9.0, align + timedelta(seconds=2))),
+    ...     ("k", xla.TsValue(2.0, align + timedelta(seconds=3))),
+    ... ]
+    >>> clock = win.EventClock(
+    ...     ts_getter=xla.column_ts, wait_for_system_duration=timedelta(hours=1)
+    ... )
+    >>> windower = win.TumblingWindower(
+    ...     length=timedelta(minutes=1), align_to=align
+    ... )
+    >>> flow = Dataflow("stats_window_eg")
+    >>> s = op.input("inp", flow, TestingSource(inp))
+    >>> wo = win.stats_window("stats", s, clock, windower)
+    >>> out = []
+    >>> op.output("out", wo.down, TestingSink(out))
+    >>> run_main(flow)
+    >>> out
+    [('k', (0, (2.0, 5.0, 9.0, 3)))]
+    """
+    from bytewax_tpu_torch.xla import STATS
+
+    return _window_fold_op(up, clock, windower, STATS)
+
+
+def _collect_list_folder(acc: List, v: Any) -> List:
+    acc.append(v)
+    return acc
+
+
+def _collect_list_merger(a: List, b: List) -> List:
+    a.extend(b)
+    return a
+
+
+def _collect_set_folder(acc: Set, v: Any) -> Set:
+    acc.add(v)
+    return acc
+
+
+def _collect_set_merger(a: Set, b: Set) -> Set:
+    a.update(b)
+    return a
+
+
+def _collect_dict_folder(acc: Dict, k_v: Tuple) -> Dict:
+    k, v = k_v
+    acc[k] = v
+    return acc
+
+
+def _collect_dict_merger(a: Dict, b: Dict) -> Dict:
+    a.update(b)
+    return a
+
+
+@operator
+def collect_window(
+    step_id: str,
+    up: KeyedStream[V],
+    clock: Clock[V, Any],
+    windower: Windower[Any],
+    into=list,
+    ordered: bool = True,
+) -> WindowOut[V, Any]:
+    """Collect all values for a key in a window into a container
+    (``list``, ``set``, or ``dict``), emitted at window close.
+
+    For ``dict``, values must be ``(key, value)`` 2-tuples.
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators as op
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> from bytewax_tpu_torch.dataflow import Dataflow
+    >>> from bytewax_tpu_torch.testing import TestingSink, TestingSource, run_main
+    >>> align = datetime(2022, 1, 1, tzinfo=timezone.utc)
+    >>> inp = [
+    ...     ("k", (align + timedelta(seconds=1), 10)),
+    ...     ("k", (align + timedelta(seconds=2), 20)),
+    ... ]
+    >>> clock = win.EventClock(
+    ...     ts_getter=lambda v: v[0], wait_for_system_duration=timedelta(hours=1)
+    ... )
+    >>> windower = win.TumblingWindower(
+    ...     length=timedelta(minutes=1), align_to=align
+    ... )
+    >>> flow = Dataflow("collect_window_eg")
+    >>> s = op.input("inp", flow, TestingSource(inp))
+    >>> wo = win.collect_window("batch", s, clock, windower)
+    >>> out = []
+    >>> op.output("out", wo.down, TestingSink(out))
+    >>> run_main(flow)
+    >>> [(k, (wid, [v for _ts, v in vals])) for k, (wid, vals) in out]
+    [('k', (0, [10, 20]))]
+
+    Reference parity: ``windowing.py:1436``.
+    """
+    if into is list:
+        folder, merger = _collect_list_folder, _collect_list_merger
+    elif into is set:
+        folder, merger = _collect_set_folder, _collect_set_merger
+    elif into is dict:
+        folder, merger = _collect_dict_folder, _collect_dict_merger
+    else:
+        msg = f"`collect_window` doesn't support `into` {into!r}"
+        raise TypeError(msg)
+
+    return fold_window(
+        "fold_window", up, clock, windower, into, folder, merger,
+        ordered=ordered,
+    )
+
+
+@operator
+def count_window(
+    step_id: str,
+    up: Stream[X],
+    clock: Clock[X, Any],
+    windower: Windower[Any],
+    key: Callable[[X], str],
+) -> WindowOut[X, int]:
+    """Count occurrences of items per key per window.
+
+    Columnar batches carrying ``"key"`` + ``"ts"`` columns pass
+    through keying untouched and count on device with no per-row
+    Python (see ``bytewax_tpu_torch/engine/window_accel.py``).
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators as op
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> from bytewax_tpu_torch.dataflow import Dataflow
+    >>> from bytewax_tpu_torch.testing import TestingSink, TestingSource, run_main
+    >>> align = datetime(2022, 1, 1, tzinfo=timezone.utc)
+    >>> inp = [align + timedelta(seconds=sec) for sec in (1, 2, 61)]
+    >>> clock = win.EventClock(
+    ...     ts_getter=lambda x: x, wait_for_system_duration=timedelta(hours=1)
+    ... )
+    >>> windower = win.TumblingWindower(
+    ...     length=timedelta(minutes=1), align_to=align
+    ... )
+    >>> flow = Dataflow("count_window_eg")
+    >>> s = op.input("inp", flow, TestingSource(inp))
+    >>> wo = win.count_window("count", s, clock, windower, key=lambda _x: "all")
+    >>> out = []
+    >>> op.output("out", wo.down, TestingSink(out))
+    >>> run_main(flow)
+    >>> sorted(out)
+    [('all', (0, 2)), ('all', (1, 1))]
+
+    Reference parity: ``windowing.py:1579``.
+    """
+
+    def shim_keyed(xs):
+        from bytewax_tpu_torch.engine.arrays import ArrayBatch
+
+        if isinstance(xs, ArrayBatch):
+            return xs  # already keyed (columnar)
+        return [(key(x), x) for x in xs]
+
+    keyed = op.flat_map_batch("keyed", up, shim_keyed)
+    return fold_window(
+        "fold_window",
+        keyed,
+        clock,
+        windower,
+        lambda: 0,
+        lambda s, _: s + 1,
+        lambda s, t: s + t,
+        ordered=False,
+    )
+
+
+@dataclass
+class _JoinWindowLogic(WindowLogic[Tuple[int, Any], Tuple, _SideTable]):
+    insert_mode: JoinInsertMode
+    emit_mode: JoinEmitMode
+    table: _SideTable
+
+    def _after_change(self) -> Iterable[Tuple]:
+        if self.emit_mode == "complete" and self.table.complete():
+            rows = self.table.rows()
+            self.table.reset()
+            return rows
+        if self.emit_mode == "running":
+            return self.table.rows()
+        return _EMPTY
+
+    def on_value(self, value: Tuple[int, Any]) -> Iterable[Tuple]:
+        side, side_value = value
+        self.table.absorb(side, side_value, self.insert_mode)
+        return self._after_change()
+
+    def on_merge(self, original: "_JoinWindowLogic") -> Iterable[Tuple]:
+        # Session-merge algebra matching the reference
+        # (windowing.py:1879-1890); see _SideTable.union.
+        self.table.union(original.table, self.insert_mode)
+        return self._after_change()
+
+    def on_close(self) -> Iterable[Tuple]:
+        if self.emit_mode == "final":
+            return self.table.rows()
+        return _EMPTY
+
+    def snapshot(self) -> _SideTable:
+        return copy.deepcopy(self.table)
+
+
+@operator
+def join_window(
+    step_id: str,
+    clock: Clock[Any, Any],
+    windower: Windower[Any],
+    *sides: KeyedStream[Any],
+    insert_mode: JoinInsertMode = "last",
+    emit_mode: JoinEmitMode = "final",
+    ordered: bool = True,
+) -> WindowOut[Any, Tuple]:
+    """Gather the values for a key on multiple streams within each
+    window.
+
+    >>> from datetime import datetime, timedelta, timezone
+    >>> import bytewax_tpu_torch.operators as op
+    >>> import bytewax_tpu_torch.operators.windowing as win
+    >>> from bytewax_tpu_torch.dataflow import Dataflow
+    >>> from bytewax_tpu_torch.testing import TestingSink, TestingSource, run_main
+    >>> align = datetime(2022, 1, 1, tzinfo=timezone.utc)
+    >>> names = [("1", (align, "alice"))]
+    >>> emails = [("1", (align + timedelta(seconds=2), "a@example.com"))]
+    >>> flow = Dataflow("join_window_eg")
+    >>> ns = op.input("names", flow, TestingSource(names))
+    >>> es = op.input("emails", flow, TestingSource(emails))
+    >>> clock = win.EventClock(
+    ...     ts_getter=lambda v: v[0], wait_for_system_duration=timedelta(0)
+    ... )
+    >>> windower = win.TumblingWindower(
+    ...     length=timedelta(minutes=1), align_to=align
+    ... )
+    >>> wo = win.join_window("join", clock, windower, ns, es)
+    >>> out = []
+    >>> op.output("out", wo.down, TestingSink(out))
+    >>> run_main(flow)
+    >>> [(k, (wid, tuple(v[1] for v in vs))) for k, (wid, vs) in out]
+    [('1', (0, ('alice', 'a@example.com')))]
+
+    Reference parity: ``windowing.py:2055``.
+    """
+    if insert_mode not in ("first", "last", "product"):
+        msg = f"unknown join insert mode {insert_mode!r}"
+        raise ValueError(msg)
+    if emit_mode not in ("complete", "final", "running"):
+        msg = f"unknown join emit mode {emit_mode!r}"
+        raise ValueError(msg)
+
+    side_count = len(sides)
+    merged = op._tag_sides("tag", *sides)
+
+    # The merged stream carries (side, value) pairs; an EventClock
+    # defined on bare values needs unwrapping.
+    if isinstance(clock, EventClock):
+        value_ts_getter = clock.ts_getter
+
+        def shim_getter(i_v: Tuple[int, Any]) -> datetime:
+            _i, v = i_v
+            return value_ts_getter(v)
+
+        clock = EventClock(
+            ts_getter=shim_getter,
+            wait_for_system_duration=clock.wait_for_system_duration,
+            now_getter=clock.now_getter,
+            to_system_utc=clock.to_system_utc,
+        )
+
+    def shim_builder(
+        resume_state: Optional[_SideTable],
+    ) -> _JoinWindowLogic:
+        table = (
+            resume_state
+            if resume_state is not None
+            else _SideTable.empty(side_count)
+        )
+        return _JoinWindowLogic(insert_mode, emit_mode, table)
+
+    return window(
+        "window", merged, clock, windower, shim_builder, ordered=ordered
+    )

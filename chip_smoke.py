@@ -4,21 +4,41 @@ check it.
 
 Phases, each of which raises on any failure:
 
-1. build  — compile every kernel of the main path from the sources in
+1. build   — compile every kernel of the main path from the sources in
    this checkout (``nvcc``, ``sm_90a``);
-2. kernel — hold the segment-fold kernel against its plain PyTorch
+2. kernel  — hold the segment-fold kernel against its plain PyTorch
    version on the card: every aggregation kind, float32 and int32,
    all three row sources, 2^20 rows, capacity 1024 and 16384; rows
-   with NaN values, and rows that all fold into one slot; then time it
-   at the main path's shapes (device time per launch, the wrapper's
-   host time per call);
-3. main   — the 1BRC keyed aggregation (``brc_flow_columnar``) through
+   with NaN values, and rows that all fold into one slot; the
+   (slot, value) rows of the windowed folds at 10·2^20 rows and
+   capacities 32768 and 131072; then time it at the main paths'
+   shapes (device time per launch, the wrapper's host time per call);
+3. main    — the 1BRC keyed aggregation (``brc_flow_columnar``) through
    ``run_main`` at 32·2^20 rows in 2^20-row micro-batches, over 413
    and over 10,000 stations, checked against a float64 numpy
    reference and against the kernel's launch count;
-4. items  — the itemized paths (``brc_flow`` over Python tuples,
+4. items   — the itemized paths (``brc_flow`` over Python tuples,
    ``count_final`` over strings), float32 and int32 state;
-5. report — one ``{"kernels": [...]}`` line.
+5. ingest  — 2^22 lines of 1BRC text (10,000 stations) read by
+   ``FileSource(columnar=True)``, split by ``ops.text.split_fields``
+   and folded by ``xla.stats_final``, once with the line gather on
+   the host and once on the card (``BYTEWAX_TPU_TEXT_DEVICE=1``); and
+   wordcount over 2^20 lines of 10 words from a 1,000-word vocabulary
+   through ``wordcount_flow(FileSource(..., columnar=True))``;
+6. windows — event-time windows over dictionary-encoded 1BRC readings
+   (10,000 stations, one event-minute per 2^20-row batch, 1% of rows
+   late): ``stats_window`` over tumbling 1-minute windows (16·2^20
+   rows), over sliding 10-minute windows every minute (8·2^20 rows),
+   and ``count_window`` over 60 s sessions (4·2^20 rows; each station
+   goes quiet for 2–5 event-minutes), each with its p99 window-close
+   latency;
+7. report  — one ``{"kernels": [...]}`` line.
+
+Phases 5 and 6 hold their output against a float64 numpy oracle of
+the same semantics: counts, min and max exactly, means within 1e-5 of
+the rows' mean absolute value.  Every phase that drives a flow resets the kernel's launch
+count just before ``run_main`` and fails if the run launched it no
+time.
 
 Every result line is JSON and carries the card's name and power
 limit.  The last line is ``{"ok": true, "device": {...}}``.
@@ -43,6 +63,26 @@ BATCH_ROWS = 1 << 20
 #: Rows per kernel check in phase 2, and itemized rows in phase 4.
 KERNEL_ROWS = 1 << 20
 ITEM_ROWS = 1 << 20
+#: Phase 2: rows of the (slot, value) checks at the window tables'
+#: capacities (sliding windows expand a 2^20-row batch tenfold).
+WINDOW_KERNEL_ROWS = 10 << 20
+#: Phase 5: 1BRC text lines and stations; wordcount lines and words.
+INGEST_LINES = 1 << 22
+INGEST_STATIONS = 10_000
+WORDCOUNT_LINES = 1 << 20
+WORDS_PER_LINE = 10
+WORDCOUNT_VOCAB = 1000
+#: Phase 6: stations, rows per batch (one event-minute), late share,
+#: and the EventClock's wait.
+WINDOW_KEYS = 10_000
+WINDOW_BATCH_ROWS = 1 << 20
+LATE_SHARE = 0.01
+WINDOW_WAIT_S = 30
+#: Phase 6 cases: (name, batches).
+WINDOW_CASES = (("tumbling", 16), ("sliding", 8), ("session", 4))
+#: Tolerance of a float32 mean against the float64 oracle, relative
+#: to the rows' mean absolute value (see ``_check_mean``).
+MEAN_RTOL = 1e-5
 #: The card's memory rate (H100 SXM data sheet), for the kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
 #: float32 rate outside the tensor cores (H100 SXM data sheet).
@@ -195,24 +235,32 @@ def _inputs(capacity: int, dtype, n: int, gen, nan_share: float = 0.0):
 
 
 #: The one-slot case's packed scale: with values ``k * 0.5`` for
-#: ``|k| <= 6`` every float32 sum of 2·2^20 rows is exact in any order.
+#: ``|k| <= 6`` every float32 sum of 2·2^20 rows is exact in any order
+#: (see ``_one_slot``).
 EXACT_SCALE = 0.5
 
 
-def _one_slot(inp: dict, slot: int, gen) -> dict:
-    """Rows that all fold into ``slot``, with values ``k * 0.5`` (int32:
-    ``k``) and packed ``q = k`` for ``|k| <= 6``, so that every sum is
-    exact and must match the plain version exactly."""
+def _one_slot(inp: dict, slot: int, gen, span: int = 6, rows=None) -> dict:
+    """``rows`` rows (default: as many as ``inp`` has) that all fold
+    into ``slot``, with values ``k * 0.5`` (int32: ``k``) and packed
+    ``q = k`` for ``|k| <= span``.  The check folds them twice (once
+    as the base state, once through the kernel), so every partial sum
+    is a multiple of 0.5 of at most ``span * rows`` in magnitude; below
+    2^23 each is exact in float32, in any order, and must match the
+    plain version exactly."""
     import torch
 
-    n = inp["slots"].shape[0]
-    k = torch.randint(-6, 7, (n,), generator=gen, device=DEV, dtype=torch.int32)
+    n = inp["slots"].shape[0] if rows is None else rows
+    if span * n >= 1 << 23:
+        msg = f"one-slot sums of 2·{n} rows with |k| <= {span} are not exact"
+        raise ValueError(msg)
+    k = torch.randint(-span, span + 1, (n,), generator=gen, device=DEV, dtype=torch.int32)
     out = dict(inp)
-    out["slots"] = torch.full_like(inp["slots"], slot)
+    out["slots"] = torch.full((n,), slot, device=DEV, dtype=torch.int32)
     out["ext_to_slot"] = inp["ext_to_slot"].clone()
     out["ext_to_slot"][:-1] = slot
-    out["ext16"] = torch.zeros_like(inp["ext16"])
-    out["ext32"] = torch.zeros_like(inp["ext32"])
+    out["ext16"] = torch.zeros(n, device=DEV, dtype=torch.int16)
+    out["ext32"] = torch.zeros(n, device=DEV, dtype=torch.int32)
     out["packed"] = torch.stack([torch.zeros_like(k), k]).to(torch.int16).contiguous()
     out["vals"] = k * 0.5 if inp["vals"].is_floating_point() else k
     return out
@@ -321,7 +369,7 @@ def _check_case(seg, card_worst: dict, which, inp, scale, capacity, dtype, tag, 
     return checked
 
 
-def phase_kernel(card: dict, n: int) -> dict:
+def phase_kernel(card: dict, n: int, window_rows: int) -> dict:
     import torch
 
     from bytewax_tpu_torch.ops import fold_kernel
@@ -355,11 +403,25 @@ def phase_kernel(card: dict, n: int) -> dict:
     if worst["nan_slots"] == 0:
         msg = "the NaN cases left no NaN in any field"
         raise AssertionError(msg)
+    # The windowed folds' (slot, value) rows: a sliding-window batch
+    # (10·2^20 expanded rows) into the tumbling and sliding tables.
+    for capacity in (32768, 131072):
+        for dtype in (torch.float32, torch.int32):
+            inp = _inputs(capacity, dtype, window_rows, gen)
+            checked["window_slot"] = checked.get("window_slot", 0) + _check_case(
+                seg, worst, "slot", inp, scale, capacity, dtype, "window_slot"
+            )
+            hot = _one_slot(inp, capacity // 2, gen, span=1, rows=1 << 22)
+            checked["window_one_slot"] = checked.get("window_one_slot", 0) + _check_case(
+                seg, worst, "slot", hot, EXACT_SCALE, capacity, dtype, "window_one_slot",
+                exact=True,
+            )
     _emit(
         card,
         "kernel",
         checked_cases=checked,
         rows=n,
+        window_rows=window_rows,
         max_abs_err=worst["abs"],
         max_sum_err_over_bound=worst["ratio"],
         nan_slots_matched=worst["nan_slots"],
@@ -368,9 +430,16 @@ def phase_kernel(card: dict, n: int) -> dict:
     return {"max_abs_err": worst["abs"], "max_sum_err_over_bound": worst["ratio"]}
 
 
-def _time_main_shapes(card: dict, n: int, capacity: int, n_stations: int) -> dict:
-    """Kernel, plain version and library call at the 1BRC main path's
-    shapes: stats over packed rows, float32, one 2^20-row batch.
+def _time_main_shapes(
+    card: dict, n: int, capacity: int, n_keys: int, source: str = "packed"
+) -> dict:
+    """Kernel, plain version and library call at a main path's shapes:
+    stats, float32, one batch of ``n`` rows.
+
+    ``source="packed"`` is the 1BRC batch: packed int16 rows of
+    ``n_keys`` stations through the id->slot table.  ``source="slot"``
+    is a windowed fold's batch: (slot, value) rows over ``n_keys``
+    live slots of the table.
 
     ``ms`` is the kernel's device time per launch (the profiler's, or
     a replayed CUDA graph's where the profiler shows none); ``host_us``
@@ -383,48 +452,70 @@ def _time_main_shapes(card: dict, n: int, capacity: int, n_stations: int) -> dic
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1)
     kind = seg.AGG_KINDS["stats"]
-    scale = 0.1
-    n_map = n_stations + 1
-    ext_to_slot = torch.arange(n_map, dtype=torch.int32, device=DEV)
-    ext_to_slot[-1] = capacity - 1
-    ids = torch.randint(0, n_stations, (n,), generator=gen, device=DEV, dtype=torch.int32)
-    q = torch.randint(-999, 1000, (n,), generator=gen, device=DEV, dtype=torch.int32)
-    packed = torch.stack([ids, q]).to(torch.int16).contiguous()
+    n_fields = len(kind.fields)
     state = seg.init_fields(kind, capacity, torch.float32, DEV)
     reps = 50
+    if source == "packed":
+        scale = 0.1
+        n_map = n_keys + 1
+        ext_to_slot = torch.arange(n_map, dtype=torch.int32, device=DEV)
+        ext_to_slot[-1] = capacity - 1
+        ids = torch.randint(0, n_keys, (n,), generator=gen, device=DEV, dtype=torch.int32)
+        q = torch.randint(-999, 1000, (n,), generator=gen, device=DEV, dtype=torch.int32)
+        packed = torch.stack([ids, q]).to(torch.int16).contiguous()
 
-    def kernel():
-        fold_kernel.fold(
-            kind,
-            state,
-            fold_kernel.SRC_PACKED,
-            packed,
-            None,
-            ext_to_slot=ext_to_slot,
-            scale=scale,
-        )
+        def kernel():
+            fold_kernel.fold(
+                kind,
+                state,
+                fold_kernel.SRC_PACKED,
+                packed,
+                None,
+                ext_to_slot=ext_to_slot,
+                scale=scale,
+            )
+
+        def entry():
+            seg.update_fields_packed(kind, state, ext_to_slot, packed, scale)
+
+        def plain():
+            seg.fold_plain(
+                kind,
+                state,
+                seg.slots_of(ext_to_slot, packed[0]),
+                seg.dequantize(packed, scale),
+            )
+
+        slots = seg.slots_of(ext_to_slot, packed[0]).long()
+        vals = seg.dequantize(packed, scale)
+        bytes_moved = 4 * n + 4 * n_map + 2 * 4 * n_fields * capacity
+        ops = (1 + n_fields) * n  # one dequant multiply, one combine per field
+    else:
+        slot_rows = torch.randint(0, n_keys, (n,), generator=gen, device=DEV, dtype=torch.int32)
+        vals = torch.randn(n, generator=gen, device=DEV) * 10.0 + 12.0
+
+        def kernel():
+            fold_kernel.fold(kind, state, fold_kernel.SRC_SLOT, slot_rows, vals)
+
+        def entry():
+            seg.update_fields(kind, state, slot_rows, vals)
+
+        def plain():
+            seg.fold_plain(kind, state, slot_rows, vals)
+
+        slots = slot_rows.long()
+        bytes_moved = 8 * n + 2 * 4 * n_fields * capacity
+        ops = n_fields * n  # one combine per field
 
     profiled_ms = _profiled_ms(kernel, reps)
     graph_ms = _graph_ms(kernel)
     ms = profiled_ms if profiled_ms is not None else graph_ms
     host_us = _host_us(kernel, 200)
-    events_ms = _time_ms(
-        lambda: seg.update_fields_packed(kind, state, ext_to_slot, packed, scale), reps
-    )
-    plain_ms = _time_ms(
-        lambda: seg.fold_plain(
-            kind,
-            state,
-            seg.slots_of(ext_to_slot, packed[0]),
-            seg.dequantize(packed, scale),
-        ),
-        reps,
-    )
+    events_ms = _time_ms(entry, reps)
+    plain_ms = _time_ms(plain, reps)
     # Yardstick only (the port never calls it on the card):
-    # scatter_reduce_ per field over the already gathered and
-    # dequantized rows.
-    slots = seg.slots_of(ext_to_slot, packed[0]).long()
-    vals = seg.dequantize(packed, scale)
+    # scatter_reduce_ per field over the already gathered (and
+    # dequantized) rows.
     ones = torch.ones_like(vals)
     reduce_of = {"min": "amin", "max": "amax", "sum": "sum", "count": "sum"}
 
@@ -434,9 +525,6 @@ def _time_main_shapes(card: dict, n: int, capacity: int, n_stations: int) -> dic
             arr.scatter_reduce_(0, slots, src, reduce_of[name], include_self=True)
 
     library_ms = _time_ms(library, reps)
-    n_fields = len(kind.fields)
-    bytes_moved = 4 * n + 4 * n_map + 2 * 4 * n_fields * capacity
-    ops = (1 + n_fields) * n  # one dequant multiply, one combine per field
     bound_s = max(bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
     res = {
         "ms": ms,
@@ -454,13 +542,110 @@ def _time_main_shapes(card: dict, n: int, capacity: int, n_stations: int) -> dic
     _emit(
         card,
         "kernel_time",
+        source=source,
         rows=n,
         capacity=capacity,
-        stations=n_stations,
+        keys=n_keys,
         sms=torch.cuda.get_device_properties(0).multi_processor_count,
         **res,
     )
     return res
+
+
+# -- shared by the phases that drive flows (3 to 6) ------------------------
+
+
+def _require_launches(launches: int, what: str) -> None:
+    if launches <= 0:
+        msg = f"{what}: the segment-fold kernel was launched no time"
+        raise AssertionError(msg)
+
+
+class _Timed:
+    """Wrap a state method to count its calls and the seconds spent in
+    it (the wrapper's own cost included)."""
+
+    def __init__(self, obj, name: str):
+        self.calls = 0
+        self.seconds = 0.0
+        inner = getattr(obj, name)
+
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+        setattr(obj, name, wrapped)
+
+
+def _recording_states(timed=()):
+    """Patch ``make_agg_state`` to record every device state a run
+    builds, with a :class:`_Timed` for each method named in ``timed``;
+    returns the states, their timers and the undo function."""
+    import bytewax_tpu_torch.engine.sharded_state as sharded_state
+
+    states, timers = [], []
+    make = sharded_state.make_agg_state
+
+    def recording_make(kind, driver=None):
+        state = make(kind, driver=driver)
+        states.append(state)
+        timers.append({name: _Timed(state, name) for name in timed})
+        return state
+
+    sharded_state.make_agg_state = recording_make
+
+    def undo():
+        sharded_state.make_agg_state = make
+
+    return states, timers, undo
+
+
+def _run_flow(flow) -> dict:
+    """``run_main`` with every kernel count set to 0 just before it;
+    returns wall seconds, launches and the engine's phase seconds."""
+    import torch
+
+    from bytewax_tpu_torch.engine import flight
+    from bytewax_tpu_torch.ops import fold_kernel
+    from bytewax_tpu_torch.testing import run_main
+
+    phases_before = dict(flight.RECORDER.phase_totals)
+    counters_before = dict(flight.RECORDER.counters)
+    torch.cuda.synchronize()
+    fold_kernel.launches = 0
+    t0 = time.perf_counter()
+    run_main(flow)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fold_kernel.launches
+    return {
+        "seconds": seconds,
+        "launches": launches,
+        "phase_seconds": {
+            name: total - phases_before.get(name, 0.0)
+            for name, total in flight.RECORDER.phase_totals.items()
+        },
+        "counters": {
+            name: value - counters_before.get(name, 0)
+            for name, value in flight.RECORDER.counters.items()
+            if value != counters_before.get(name, 0)
+        },
+    }
+
+
+def _check_mean(got: float, want: float, scale: float, where: str) -> float:
+    """A float32 mean against the float64 oracle's, relative to the
+    mean absolute value of the rows (the scale of a float32 sum's
+    error; the mean itself where the values share one sign)."""
+    err = abs(got - want) / scale
+    if not err <= MEAN_RTOL:
+        msg = f"{where}: mean {got} vs {want} (error {err} of the mean |value|)"
+        raise AssertionError(msg)
+    return err
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -504,50 +689,24 @@ def _demotions() -> float:
 
 
 def phase_main(card: dict, rows: int, batch_rows: int, n_stations: int, times: dict):
-    import torch
-
-    import bytewax_tpu_torch.engine.sharded_state as sharded_state
-    from bytewax_tpu_torch.engine import flight
     from bytewax_tpu_torch.models.brc import (
         ArrayBatchSource,
         brc_flow_columnar,
         generate_batches,
     )
-    from bytewax_tpu_torch.ops import fold_kernel
-    from bytewax_tpu_torch.testing import TestingSink, run_main
+    from bytewax_tpu_torch.testing import TestingSink
 
     batches = generate_batches(rows, batch_rows, n_stations, seed=0)
     want = _reference(batches, n_stations)
-    states = []
-    make = sharded_state.make_agg_state
-
-    def recording_make(kind, driver=None):
-        state = make(kind, driver=driver)
-        states.append(state)
-        return state
-
-    sharded_state.make_agg_state = recording_make
     out = []
     demoted_before = _demotions()
-    phases_before = dict(flight.RECORDER.phase_totals)
+    flow = brc_flow_columnar(ArrayBatchSource(batches), TestingSink(out))
+    states, _timers, undo = _recording_states()
     try:
-        flow = brc_flow_columnar(ArrayBatchSource(batches), TestingSink(out))
-        torch.cuda.synchronize()
-        fold_kernel.launches = 0
-        t0 = time.perf_counter()
-        run_main(flow)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = fold_kernel.launches
+        run = _run_flow(flow)
     finally:
-        sharded_state.make_agg_state = make
-    # The engine's epoch ledger: seconds per phase over this run
-    # ("device" is the pipeline worker's fold phase, host-timed; it
-    # overlaps the main thread's phases).
-    phases = {
-        name: total - phases_before.get(name, 0.0)
-        for name, total in flight.RECORDER.phase_totals.items()
-    }
+        undo()
+    seconds, launches = run["seconds"], run["launches"]
     got = dict(out)
     if set(got) != set(want):
         msg = f"stations differ: {len(got)} out, {len(want)} expected"
@@ -590,7 +749,7 @@ def phase_main(card: dict, rows: int, batch_rows: int, n_stations: int, times: d
         bound_ms=times["bound_ms"],
         max_abs_mean_err=worst_mean,
         step_demotions=demoted,
-        phase_seconds=phases,
+        phase_seconds=run["phase_seconds"],
         # Kernel time over wall time, from the two measured numbers
         # (host→device copies not included).
         kernel_busy_share=launches * times["ms"] * 1e-3 / seconds,
@@ -608,8 +767,7 @@ def phase_items(card: dict, n: int) -> int:
     from bytewax_tpu_torch.dataflow import Dataflow
     from bytewax_tpu_torch.engine.arrays import ArrayBatch
     from bytewax_tpu_torch.models.brc import ArrayBatchSource, brc_flow
-    from bytewax_tpu_torch.ops import fold_kernel
-    from bytewax_tpu_torch.testing import TestingSink, TestingSource, run_main
+    from bytewax_tpu_torch.testing import TestingSink, TestingSource
 
     rng = np.random.RandomState(2)
     ids = rng.randint(0, 413, size=n)
@@ -619,9 +777,7 @@ def phase_items(card: dict, n: int) -> int:
     chunk = 1 << 16
     batches = [items[i : i + chunk] for i in range(0, n, chunk)]
     out = []
-    fold_kernel.launches = 0
-    run_main(brc_flow(ArrayBatchSource(batches), TestingSink(out)))
-    f32_launches = fold_kernel.launches
+    f32_launches = _run_flow(brc_flow(ArrayBatchSource(batches), TestingSink(out)))["launches"]
     want = _reference(
         [ArrayBatch({"key_id": ids, "value": q}, key_vocab=vocab, value_scale=0.1)],
         len(vocab),
@@ -642,9 +798,7 @@ def phase_items(card: dict, n: int) -> int:
     s = op.input("inp", flow, TestingSource(words, batch_size=4096))
     s = op.count_final("count", s, lambda w: w)
     op.output("out", s, TestingSink(out))
-    fold_kernel.launches = 0
-    run_main(flow)
-    i32_launches = fold_kernel.launches
+    i32_launches = _run_flow(flow)["launches"]
     want = {}
     for w in words:
         want[w] = want.get(w, 0) + 1
@@ -660,6 +814,542 @@ def phase_items(card: dict, n: int) -> int:
         count_launches=i32_launches,
     )
     return f32_launches + i32_launches
+
+
+# -- phase 5 -----------------------------------------------------------------
+
+
+def _brc_text(path: str, n: int, n_stations: int, seed: int):
+    """Write ``n`` lines ``station;temp`` (one decimal) and return the
+    station ids and deci-degrees."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, n_stations, size=n)
+    deci = np.clip(np.round(rng.randn(n) * 100 + 120), -999, 999).astype(np.int64)
+    stations = np.array([f"station_{i:05d}" for i in range(n_stations)])
+    temps = np.array([f"{q / 10:.1f}" for q in range(-999, 1000)])
+    lines = np.char.add(np.char.add(stations[ids], ";"), temps[deci + 999])
+    with open(path, "w") as f:
+        f.write("\n".join(lines.tolist()))
+        f.write("\n")
+    return stations, ids, deci
+
+
+def _stats_oracle(stations, ids, deci):
+    """Per-station (min, mean, max, count) in float64 over the values
+    the flow folds: float32 of the parsed decimal."""
+    import numpy as np
+
+    n_stations = len(stations)
+    vals32 = (deci / 10.0).astype(np.float32).astype(np.float64)
+    mins = np.full(n_stations, np.inf)
+    maxs = np.full(n_stations, -np.inf)
+    np.minimum.at(mins, ids, vals32)
+    np.maximum.at(maxs, ids, vals32)
+    sums = np.bincount(ids, weights=deci / 10.0, minlength=n_stations)
+    abs_sums = np.bincount(ids, weights=np.abs(deci) / 10.0, minlength=n_stations)
+    counts = np.bincount(ids, minlength=n_stations)
+    return {
+        str(stations[i]): (
+            mins[i],
+            sums[i] / counts[i],
+            maxs[i],
+            int(counts[i]),
+            abs_sums[i] / counts[i],
+        )
+        for i in range(n_stations)
+        if counts[i]
+    }
+
+
+def _ingest_brc(card: dict, path: str, want: dict, n: int, text_device: bool):
+    import numpy as np
+
+    import bytewax_tpu_torch.operators as op
+    from bytewax_tpu_torch import xla
+    from bytewax_tpu_torch.connectors.files import FileSource
+    from bytewax_tpu_torch.dataflow import Dataflow
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.ops import text
+    from bytewax_tpu_torch.testing import TestingSink
+
+    def parse(batch):
+        cols = text.split_fields(batch.cols["line"], 2, ";")
+        return ArrayBatch({"key": cols[0], "value": cols[1].astype(np.float64)})
+
+    # Count the device gathers (the line split's padded gather runs
+    # on the card with BYTEWAX_TPU_TEXT_DEVICE=1).
+    gathers = [0]
+    device_gather = text._gather_pad_device
+
+    def counted(*args):
+        gathers[0] += 1
+        return device_gather(*args)
+
+    out = []
+    flow = Dataflow("ingest_brc")
+    s = op.input("inp", flow, FileSource(path, columnar=True, chunk_bytes=4 << 20))
+    s = op.flat_map_batch("parse", s, parse)
+    s = xla.stats_final("stats", s)
+    op.output("out", s, TestingSink(out))
+    states, _timers, undo = _recording_states()
+    text._gather_pad_device = counted
+    if text_device:
+        os.environ["BYTEWAX_TPU_TEXT_DEVICE"] = "1"
+    try:
+        run = _run_flow(flow)
+    finally:
+        os.environ.pop("BYTEWAX_TPU_TEXT_DEVICE", None)
+        text._gather_pad_device = device_gather
+        undo()
+    _require_launches(run["launches"], "1BRC file ingest")
+    if text_device != (gathers[0] > 0):
+        msg = f"text_device={text_device} but {gathers[0]} device gathers ran"
+        raise AssertionError(msg)
+    if len(states) != 1 or states[0].device.type != DEV:
+        msg = f"device state not on cuda: {[s.device for s in states]}"
+        raise AssertionError(msg)
+    rows = run["counters"].get("ingest_rows_columnar", 0)
+    if rows != n:
+        msg = f"ingest_rows_columnar counted {rows} of {n} lines"
+        raise AssertionError(msg)
+    got = dict(out)
+    if set(got) != set(want):
+        msg = f"1BRC file: {len(got)} stations out, {len(want)} expected"
+        raise AssertionError(msg)
+    worst = 0.0
+    for station, (mn, mean, mx, count, mean_abs) in want.items():
+        gmn, gmean, gmx, gcount = got[station]
+        if (gmn, gmx, gcount) != (mn, mx, count):
+            msg = f"{station}: {got[station]} != {want[station]}"
+            raise AssertionError(msg)
+        worst = max(worst, _check_mean(gmean, mean, mean_abs, station))
+    _emit(
+        card,
+        "ingest",
+        flow="FileSource(columnar) -> split_fields -> stats_final",
+        text_device=text_device,
+        device_gathers=gathers[0],
+        lines=n,
+        stations=len(want),
+        table_capacity=states[0].capacity,
+        seconds=run["seconds"],
+        rows_per_s=n / run["seconds"],
+        kernel_launches=run["launches"],
+        ingest_rows_columnar=rows,
+        max_mean_rel_err=worst,
+        h2d_bytes=run["counters"].get("device_transfer_bytes_h2d", 0),
+        phase_seconds=run["phase_seconds"],
+    )
+    return run["launches"]
+
+
+def _ingest_wordcount(card: dict, path: str, n_lines: int, seed: int):
+    import itertools
+    import string
+
+    import numpy as np
+
+    from bytewax_tpu_torch.connectors.files import FileSource
+    from bytewax_tpu_torch.models.wordcount import wordcount_flow
+    from bytewax_tpu_torch.testing import TestingSink
+
+    rng = np.random.RandomState(seed)
+    # Letter-only words (the tokenizer splits on digits).
+    vocab = np.array(
+        [
+            "w" + "".join(c)
+            for c in itertools.islice(
+                itertools.product(string.ascii_lowercase, repeat=3), WORDCOUNT_VOCAB
+            )
+        ]
+    )
+    idx = rng.randint(0, WORDCOUNT_VOCAB, size=(n_lines, WORDS_PER_LINE))
+    words = vocab[idx]
+    lines = words[:, 0]
+    for j in range(1, WORDS_PER_LINE):
+        lines = np.char.add(np.char.add(lines, " "), words[:, j])
+    with open(path, "w") as f:
+        f.write("\n".join(lines.tolist()))
+        f.write("\n")
+    counts = np.bincount(idx.ravel(), minlength=WORDCOUNT_VOCAB)
+    want = {str(vocab[i]): int(counts[i]) for i in range(WORDCOUNT_VOCAB) if counts[i]}
+
+    out = []
+    flow = wordcount_flow(FileSource(path, columnar=True, chunk_bytes=4 << 20), TestingSink(out))
+    states, _timers, undo = _recording_states()
+    try:
+        run = _run_flow(flow)
+    finally:
+        undo()
+    _require_launches(run["launches"], "wordcount")
+    rows = run["counters"].get("ingest_rows_columnar", 0)
+    if rows != n_lines:
+        msg = f"ingest_rows_columnar counted {rows} of {n_lines} lines"
+        raise AssertionError(msg)
+    if dict(out) != want:
+        msg = f"wordcount differs from the oracle ({len(out)} words out)"
+        raise AssertionError(msg)
+    if len(states) != 1 or states[0].device.type != DEV:
+        msg = f"device state not on cuda: {[s.device for s in states]}"
+        raise AssertionError(msg)
+    n_words = n_lines * WORDS_PER_LINE
+    _emit(
+        card,
+        "ingest",
+        flow="wordcount_flow(FileSource(columnar))",
+        lines=n_lines,
+        words=n_words,
+        vocab=len(want),
+        table_capacity=states[0].capacity,
+        seconds=run["seconds"],
+        rows_per_s=n_lines / run["seconds"],
+        words_per_s=n_words / run["seconds"],
+        kernel_launches=run["launches"],
+        ingest_rows_columnar=rows,
+        phase_seconds=run["phase_seconds"],
+    )
+    return run["launches"]
+
+
+def phase_ingest(card: dict, n_lines: int, n_stations: int, wc_lines: int) -> int:
+    """1BRC text and wordcount read from files; returns the kernel
+    launches of the three runs."""
+    import tempfile
+
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="bytewax_chip_smoke_") as tmp:
+        path = os.path.join(tmp, "measurements.txt")
+        stations, ids, deci = _brc_text(path, n_lines, n_stations, seed=5)
+        want = _stats_oracle(stations, ids, deci)
+        for text_device in (False, True):
+            launches += _ingest_brc(card, path, want, n_lines, text_device)
+        launches += _ingest_wordcount(card, os.path.join(tmp, "words.txt"), wc_lines, seed=6)
+    return launches
+
+
+# -- phase 6 -----------------------------------------------------------------
+
+#: Event time of the first reading (µs since the epoch); windows align
+#: to it.
+_T0_US = 1_767_225_600_000_000  # 2026-01-01T00:00:00Z
+_MINUTE_US = 60_000_000
+
+
+def _window_data(name: str, n_batches: int, n: int, n_keys: int, seed: int):
+    """Per-batch station ids and event times (µs): one event-minute
+    per batch, rising within it; ``LATE_SHARE`` of the rows pushed
+    back five minutes.  For sessions every station goes quiet for
+    2–5 event-minutes, starting at a seeded point (rows are drawn
+    among the stations awake at their time)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    offs = (np.arange(n, dtype=np.int64) * _MINUTE_US) // n
+    if name == "session":
+        quiet_lo = (rng.uniform(-2, 3, size=n_keys) * _MINUTE_US).astype(np.int64)
+        quiet_hi = quiet_lo + (rng.uniform(2, 5, size=n_keys) * _MINUTE_US).astype(np.int64)
+    ids_all, ts_all, deci_all = [], [], []
+    for b in range(n_batches):
+        ts = _T0_US + b * _MINUTE_US + offs
+        ids = rng.randint(0, n_keys, size=n).astype(np.int32)
+        if name == "session":
+            rel = ts - _T0_US
+            asleep = (quiet_lo[ids] <= rel) & (rel < quiet_hi[ids])
+            while asleep.any():
+                ids[asleep] = rng.randint(0, n_keys, size=int(asleep.sum()))
+                asleep = (quiet_lo[ids] <= rel) & (rel < quiet_hi[ids])
+        late = rng.rand(n) < LATE_SHARE
+        ts = ts.copy()
+        ts[late] -= 5 * _MINUTE_US
+        deci = np.clip(np.round(rng.randn(n) * 100 + 120), -999, 999).astype(np.int16)
+        ids_all.append(ids)
+        ts_all.append(ts)
+        deci_all.append(deci)
+    return ids_all, ts_all, deci_all
+
+
+def _late_oracle(ids, ts, wait_us: int):
+    """Per row, whether it is late: its timestamp lies below its
+    station's running maximum of ``ts - wait`` over the station's
+    earlier rows (a plain loop per station, in arrival order)."""
+    import numpy as np
+
+    order = np.argsort(ids, kind="stable")
+    k_sorted = ids[order]
+    t_sorted = ts[order]
+    starts = np.flatnonzero(np.r_[True, k_sorted[1:] != k_sorted[:-1]])
+    ends = np.r_[starts[1:], len(order)]
+    late_sorted = np.zeros(len(order), dtype=bool)
+    for lo, hi in zip(starts.tolist(), ends.tolist()):
+        seg = t_sorted[lo:hi]
+        prev = np.maximum.accumulate(seg - wait_us)
+        late_sorted[lo + 1 : hi] = seg[1:] < prev[:-1]
+    late = np.empty_like(late_sorted)
+    late[order] = late_sorted
+    return late
+
+
+def _minute_partials(ids, ts, vals, n_keys: int):
+    """Dense per-(station, event-minute) count/sum/|sum|/min/max of
+    the on-time rows; returns the first minute and the five arrays."""
+    import numpy as np
+
+    minute = (ts - _T0_US) // _MINUTE_US
+    m0 = int(minute.min())
+    n_min = int(minute.max()) - m0 + 1
+    cell = ids.astype(np.int64) * n_min + (minute - m0)
+    size = n_keys * n_min
+    count = np.bincount(cell, minlength=size).reshape(n_keys, n_min)
+    total = np.bincount(cell, weights=vals, minlength=size).reshape(n_keys, n_min)
+    abs_total = np.bincount(cell, weights=np.abs(vals), minlength=size).reshape(n_keys, n_min)
+    mn = np.full(size, np.inf)
+    mx = np.full(size, -np.inf)
+    np.minimum.at(mn, cell, vals)
+    np.maximum.at(mx, cell, vals)
+    return m0, count, total, abs_total, mn.reshape(n_keys, n_min), mx.reshape(n_keys, n_min)
+
+
+def _window_oracle(name, ids, ts, vals, n_keys: int):
+    """``{(station id, window id): (min, mean, max, count, mean
+    |value|)}`` of the on-time rows (tumbling: the minute; sliding: minutes ``wid`` to
+    ``wid + 9``), or for sessions ``[(station id, open µs, close µs,
+    count)]``."""
+    import numpy as np
+
+    if name == "session":
+        order = np.lexsort((ts, ids))
+        k, t = ids[order], ts[order]
+        new = np.r_[True, (k[1:] != k[:-1]) | ((t[1:] - t[:-1]) > _MINUTE_US)]
+        starts = np.flatnonzero(new)
+        ends = np.r_[starts[1:], len(t)] - 1
+        return sorted(
+            zip(
+                k[starts].tolist(),
+                t[starts].tolist(),
+                t[ends].tolist(),
+                (ends - starts + 1).tolist(),
+            )
+        )
+    m0, count, total, abs_total, mn, mx = _minute_partials(ids, ts, vals, n_keys)
+    span = 1 if name == "tumbling" else 10
+    n_min = count.shape[1]
+    out = {}
+    for wid_rel in range(-(span - 1), n_min):
+        lo, hi = max(wid_rel, 0), min(wid_rel + span, n_min)
+        c = count[:, lo:hi].sum(axis=1)
+        s = total[:, lo:hi].sum(axis=1)
+        s_abs = abs_total[:, lo:hi].sum(axis=1)
+        a = mn[:, lo:hi].min(axis=1)
+        b = mx[:, lo:hi].max(axis=1)
+        for key in np.flatnonzero(c).tolist():
+            out[(key, wid_rel + m0)] = (
+                a[key],
+                s[key] / c[key],
+                b[key],
+                int(c[key]),
+                s_abs[key] / c[key],
+            )
+    return out
+
+
+def _window_case(card: dict, name: str, n_batches: int, n: int, n_keys: int, seed: int):
+    from datetime import datetime, timedelta, timezone
+
+    import numpy as np
+
+    import bytewax_tpu_torch.operators as op
+    import bytewax_tpu_torch.operators.windowing as win
+    from bytewax_tpu_torch.dataflow import Dataflow
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.inputs import DynamicSource, StatelessSourcePartition
+    from bytewax_tpu_torch.outputs import DynamicSink, StatelessSinkPartition
+    from bytewax_tpu_torch.testing import TestingSink
+    from bytewax_tpu_torch.xla import column_ts
+
+    ids_b, ts_b, deci_b = _window_data(name, n_batches, n, n_keys, seed)
+    vocab = np.array([f"station_{i:05d}" for i in range(n_keys)])
+    batches = [
+        ArrayBatch({"key_id": i, "ts": t, "value": d}, key_vocab=vocab, value_scale=0.1)
+        for i, t, d in zip(ids_b, ts_b, deci_b)
+    ]
+    emitted = []  # wall time at which the source handed out batch b
+
+    class _Part(StatelessSourcePartition):
+        def __init__(self):
+            self._i = 0
+
+        def next_batch(self):
+            if self._i >= len(batches):
+                raise StopIteration()
+            batch = batches[self._i]
+            self._i += 1
+            emitted.append(time.perf_counter())
+            return batch
+
+    class _Source(DynamicSource):
+        def build(self, step_id, worker_index, worker_count):
+            return _Part() if worker_index == 0 else _Empty()
+
+    class _Empty(StatelessSourcePartition):
+        def next_batch(self):
+            raise StopIteration()
+
+    metas = []  # (wall, item) per close's metadata event
+
+    class _MetaPart(StatelessSinkPartition):
+        def write_batch(self, items):
+            now = time.perf_counter()
+            metas.extend((now, it) for it in items)
+
+    class _MetaSink(DynamicSink):
+        def build(self, step_id, worker_index, worker_count):
+            return _MetaPart()
+
+    align = datetime.fromtimestamp(_T0_US / 1e6, tz=timezone.utc)
+    wait = timedelta(seconds=WINDOW_WAIT_S)
+    clock = win.EventClock(ts_getter=column_ts, wait_for_system_duration=wait)
+    flow = Dataflow(f"windows_{name}")
+    s = op.input("inp", flow, _Source())
+    if name == "tumbling":
+        windower = win.TumblingWindower(length=timedelta(minutes=1), align_to=align)
+        wo = win.stats_window("w", s, clock, windower)
+    elif name == "sliding":
+        windower = win.SlidingWindower(
+            length=timedelta(minutes=10), offset=timedelta(minutes=1), align_to=align
+        )
+        wo = win.stats_window("w", s, clock, windower)
+    else:
+        windower = win.SessionWindower(gap=timedelta(seconds=60))
+        wo = win.count_window("w", s, clock, windower, key=lambda x: x)
+    down, late = [], []
+    op.output("down", wo.down, TestingSink(down))
+    op.output("late", wo.late, TestingSink(late))
+    op.output("meta", wo.meta, _MetaSink())
+
+    states, timers, undo = _recording_states(timed=("alloc", "_fetch"))
+    try:
+        run = _run_flow(flow)
+    finally:
+        undo()
+    _require_launches(run["launches"], f"{name} windows")
+    if len(states) != 1 or states[0].device.type != DEV:
+        msg = f"window state not on cuda: {[s.device for s in states]}"
+        raise AssertionError(msg)
+
+    # -- the oracle -----------------------------------------------------------
+    ids = np.concatenate(ids_b)
+    ts = np.concatenate(ts_b)
+    vals = (np.concatenate(deci_b) * 0.1).astype(np.float32).astype(np.float64)
+    late_rows = _late_oracle(ids, ts, WINDOW_WAIT_S * 1_000_000)
+    ok = ~late_rows
+    want = _window_oracle(name, ids[ok], ts[ok], vals[ok], n_keys)
+    expand = 10 if name == "sliding" else 1
+    if len(late) != int(late_rows.sum()) * expand:
+        msg = f"{name}: {len(late)} late events, oracle {int(late_rows.sum())} × {expand}"
+        raise AssertionError(msg)
+
+    def us(dt):
+        return (dt - align) // timedelta(microseconds=1) + _T0_US
+
+    worst = 0.0
+    meta_of = {(k, wid): m for _wall, (k, (wid, m)) in metas}
+    if len(meta_of) != len(down):
+        msg = f"{name}: {len(down)} closes but {len(meta_of)} metadata events"
+        raise AssertionError(msg)
+    if name == "session":
+        got = sorted(
+            (
+                int(k[8:]),
+                us(meta_of[(k, wid)].open_time),
+                us(meta_of[(k, wid)].close_time),
+                count,
+            )
+            for k, (wid, count) in down
+        )
+        if got != want:
+            msg = f"sessions differ: {len(got)} out, {len(want)} expected"
+            raise AssertionError(msg)
+        merged = sum(1 for _w, (_k, (_wid, m)) in metas if m.merged_ids)
+    else:
+        got = {}
+        for k, (wid, value) in down:
+            got[(int(k[8:]), wid)] = value
+        if set(got) != set(want):
+            msg = f"{name}: {len(got)} windows out, {len(want)} expected"
+            raise AssertionError(msg)
+        for kw, (mn, mean, mx, count, mean_abs) in want.items():
+            gmn, gmean, gmx, gcount = got[kw]
+            if (gmn, gmx, gcount) != (mn, mx, count):
+                msg = f"{name} window {kw}: {got[kw]} != {want[kw]}"
+                raise AssertionError(msg)
+            worst = max(worst, _check_mean(gmean, mean, mean_abs, f"{name} window {kw}"))
+        merged = 0
+
+    # -- p99 window-close latency ----------------------------------------------
+    # A close is due once its station's watermark (max event time -
+    # wait) passes the window's end (sessions: the end plus the gap).
+    # The batch that first carries the station there triggered it;
+    # closes due only at EOF, and those triggered by the first batch
+    # (allocator and kernel warm-up), are left out.
+    keymax = np.full((n_batches, n_keys), np.iinfo(np.int64).min, dtype=np.int64)
+    for b, (i_b, t_b) in enumerate(zip(ids_b, ts_b)):
+        np.maximum.at(keymax[b], i_b, t_b)
+    keymax = np.maximum.accumulate(keymax, axis=0) - WINDOW_WAIT_S * 1_000_000
+    lats = []
+    for wall, (k, (_wid, meta)) in metas:
+        key = int(k[8:])
+        due = us(meta.close_time)
+        col = keymax[:, key]
+        if name == "session":
+            b = int(np.searchsorted(col, due + _MINUTE_US, side="right"))
+        else:
+            b = int(np.searchsorted(col, due, side="left"))
+        if 1 <= b < n_batches:
+            lats.append(wall - emitted[b])
+    lats.sort()
+    p99 = lats[int(len(lats) * 0.99)] if lats else None
+    alloc_t, fetch_t = timers[0]["alloc"], timers[0]["_fetch"]
+    state = states[0]
+    _emit(
+        card,
+        "windows",
+        case=name,
+        rows=n * n_batches,
+        batches=n_batches,
+        stations=n_keys,
+        windows_closed=len(down),
+        sessions_merged=merged,
+        late_rows=int(late_rows.sum()),
+        late_events=len(late),
+        table_capacity=state.capacity,
+        seconds=run["seconds"],
+        rows_per_s=n * n_batches / run["seconds"],
+        kernel_launches=run["launches"],
+        window_rows_folded=run["counters"].get("window_rows_ingested", 0),
+        p99_close_latency_s=p99,
+        closes_timed=len(lats),
+        median_close_latency_s=lats[len(lats) // 2] if lats else None,
+        max_mean_rel_err=worst,
+        composite_allocs=alloc_t.calls,
+        composite_alloc_seconds=alloc_t.seconds,
+        close_readbacks=fetch_t.calls,
+        close_readback_seconds=fetch_t.seconds,
+        close_readback_bytes=4 * len(state.kind.fields) * state.capacity,
+        h2d_bytes=run["counters"].get("device_transfer_bytes_h2d", 0),
+        d2h_bytes=run["counters"].get("device_transfer_bytes_d2h", 0),
+        phase_seconds=run["phase_seconds"],
+    )
+    return run["launches"]
+
+
+def phase_windows(card: dict, n: int, n_keys: int, cases) -> dict:
+    """The three windowed cases; returns their kernel launches."""
+    return {
+        name: _window_case(card, name, n_batches, n, n_keys, seed=10 + i)
+        for i, (name, n_batches) in enumerate(cases)
+    }
 
 
 def main() -> int:
@@ -686,17 +1376,28 @@ def main() -> int:
     ptxas = [ln for ln in fold_kernel.build_log.splitlines() if "registers" in ln]
     _emit(card, "build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
-    check = phase_kernel(card, KERNEL_ROWS)
-    main_launches = {}
+    check = phase_kernel(card, KERNEL_ROWS, WINDOW_KERNEL_ROWS)
+    launches = {}
+    shapes = {}
     for n_stations, capacity in ((413, 1024), (10_000, 16384)):
         times = _time_main_shapes(card, BATCH_ROWS, capacity, n_stations)
-        main_launches[n_stations] = (
-            phase_main(card, ROWS, BATCH_ROWS, n_stations, times),
-            times,
+        shapes[f"brc_{n_stations}"] = times
+        launches[f"main_{n_stations}"] = phase_main(
+            card, ROWS, BATCH_ROWS, n_stations, times
         )
-    phase_items(card, ITEM_ROWS)
+    # The windowed folds' batches: tumbling (2^20 rows into ~20,000
+    # open windows) and sliding (10·2^20 rows into ~110,000).
+    for name, rows, capacity, live in (
+        ("window_tumbling", WINDOW_BATCH_ROWS, 32768, 20_000),
+        ("window_sliding", WINDOW_KERNEL_ROWS, 131072, 110_000),
+    ):
+        shapes[name] = _time_main_shapes(card, rows, capacity, live, source="slot")
+    launches["items"] = phase_items(card, ITEM_ROWS)
+    launches["ingest"] = phase_ingest(card, INGEST_LINES, INGEST_STATIONS, WORDCOUNT_LINES)
+    for name, n in phase_windows(card, WINDOW_BATCH_ROWS, WINDOW_KEYS, WINDOW_CASES).items():
+        launches[f"windows_{name}"] = n
 
-    launches, times = main_launches[413]
+    times = shapes["brc_413"]
     print(card["line"])
     print(
         json.dumps(
@@ -707,7 +1408,8 @@ def main() -> int:
                         "route": "cuda",
                         "source": "bytewax_tpu_torch/csrc/segment_fold.cu",
                         "replaces": "bytewax_tpu/ops/pallas_fold.py:45",
-                        "launches": launches,
+                        "launches": sum(launches.values()),
+                        "launches_by_path": launches,
                         "max_abs_err": check["max_abs_err"],
                         "ms": times["ms"],
                         "host_us": times["host_us"],
@@ -715,6 +1417,14 @@ def main() -> int:
                         "bound_ms": times["bound_ms"],
                         "bound_by": times["bound_by"],
                         "library_ms": times["library_ms"],
+                        "shape": "brc_413",
+                        "shapes": {
+                            name: {
+                                key: t[key]
+                                for key in ("ms", "host_us", "plain_ms", "bound_ms", "bound_by", "library_ms")
+                            }
+                            for name, t in shapes.items()
+                        },
                     }
                 ]
             }

@@ -1,6 +1,6 @@
 """Run the examples in the torch port's docstrings: the copied host
-modules and the operators, whose keyed aggregations run on the port's
-device tier (on the CPU here)."""
+modules and the operators, whose keyed aggregations and windowed folds
+run on the port's device tier (on the CPU here)."""
 
 import doctest
 import importlib
@@ -11,6 +11,8 @@ import pytest
 from bytewax_tpu_torch.utils import force_platform
 
 MODULES = [
+    "bytewax_tpu_torch.connectors.demo",
+    "bytewax_tpu_torch.connectors.files",
     "bytewax_tpu_torch.connectors.stdio",
     "bytewax_tpu_torch.dataflow",
     "bytewax_tpu_torch.engine.backoff",
@@ -18,7 +20,10 @@ MODULES = [
     "bytewax_tpu_torch.inputs",
     "bytewax_tpu_torch.operators",
     "bytewax_tpu_torch.operators.helpers",
+    "bytewax_tpu_torch.operators.windowing",
+    "bytewax_tpu_torch.ops.text",
     "bytewax_tpu_torch.outputs",
+    "bytewax_tpu_torch.recovery",
     "bytewax_tpu_torch.testing",
     "bytewax_tpu_torch.tracing",
 ]

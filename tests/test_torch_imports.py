@@ -59,8 +59,47 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-def test_running_a_flow_loads_neither_jax_nor_the_reference():
-    code = """
+#: Flows that a subprocess runs through the port, one per path: the
+#: keyed aggregation, file ingest into wordcount, and a windowed fold.
+FLOWS = {
+    "stats": """
+s = op.input("inp", flow, TestingSource([("a", 1.5), ("b", 2.0), ("a", -1.0)]))
+s = xla.stats_final("stats", s)
+op.output("out", s, TestingSink(out))
+run_main(flow)
+assert sorted(out) == [("a", (-1.0, 0.25, 1.5, 2)), ("b", (2.0, 2.0, 2.0, 1))], out
+""",
+    "files": """
+import os, tempfile
+from bytewax_tpu_torch.connectors.files import FileSource
+from bytewax_tpu_torch.models.wordcount import wordcount_flow
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "words.txt")
+    with open(path, "w") as f:
+        f.write("a b a\\nB c\\n")
+    run_main(wordcount_flow(FileSource(path, columnar=True), TestingSink(out)))
+assert sorted(out) == [("a", 2), ("b", 2), ("c", 1)], out
+""",
+    "windows": """
+from datetime import datetime, timedelta, timezone
+import bytewax_tpu_torch.operators.windowing as win
+align = datetime(2022, 1, 1, tzinfo=timezone.utc)
+inp = [align + timedelta(seconds=sec) for sec in (1, 2, 61)]
+clock = win.EventClock(ts_getter=lambda x: x, wait_for_system_duration=timedelta(0))
+windower = win.TumblingWindower(length=timedelta(minutes=1), align_to=align)
+s = op.input("inp", flow, TestingSource(inp))
+wo = win.count_window("count", s, clock, windower, key=lambda _x: "all")
+op.output("out", wo.down, TestingSink(out))
+run_main(flow)
+assert sorted(out) == [("all", (0, 2)), ("all", (1, 1))], out
+""",
+}
+
+
+@pytest.mark.parametrize("flow", sorted(FLOWS))
+def test_running_a_flow_loads_neither_jax_nor_the_reference(flow):
+    code = (
+        """
 import sys
 import bytewax_tpu_torch.operators as op
 from bytewax_tpu_torch import xla
@@ -68,15 +107,14 @@ from bytewax_tpu_torch.dataflow import Dataflow
 from bytewax_tpu_torch.testing import TestingSink, TestingSource, run_main
 out = []
 flow = Dataflow("f")
-s = op.input("inp", flow, TestingSource([("a", 1.5), ("b", 2.0), ("a", -1.0)]))
-s = xla.stats_final("stats", s)
-op.output("out", s, TestingSink(out))
-run_main(flow)
-assert sorted(out) == [("a", (-1.0, 0.25, 1.5, 2)), ("b", (2.0, 2.0, 2.0, 1))], out
+"""
+        + FLOWS[flow]
+        + """
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "bytewax_tpu")]
 assert not loaded, loaded
 print("clean")
 """
+    )
     env = dict(os.environ, BYTEWAX_TPU_PLATFORM="cpu", PYTHONPATH=str(ROOT))
     res = subprocess.run(
         [sys.executable, "-c", code],

@@ -173,3 +173,30 @@ def test_packed_scales(dev, scale):
     capacity = 1024
     inp = _on(dev, _inputs(capacity, False, seed=9))
     _check_all_kinds(dev, "packed", inp, torch.float32, capacity, scale=scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [32768, 131072])
+@pytest.mark.parametrize("integer", [False, True], ids=["float32", "int32"])
+def test_slot_rows_at_window_capacities(dev, integer, capacity):
+    # The rows a windowed fold sends through ``update_ids``: slots over
+    # a large table, then slots freed by window closes reset to the
+    # identity and reused within the next fold.
+    dtype = torch.int32 if integer else torch.float32
+    raw = _inputs(capacity, integer, seed=capacity + 2)
+    inp = _on(dev, raw)
+    _check_all_kinds(dev, "slot", inp, dtype, capacity)
+    reused = torch.from_numpy(np.unique(raw["slots"][:4096] % (capacity - 1)).astype(np.int64)).to(dev)
+    for kind_name, kind in seg.AGG_KINDS.items():
+        got = seg.init_fields(kind, capacity, dtype, dev)
+        _kernel_fold("slot", kind, got, inp, SCALE)
+        want = {k: v.clone() for k, v in got.items()}
+        for name, (init, _op) in kind.fields.items():
+            ident = seg.identity_for(init, dtype)
+            got[name].index_fill_(0, reused, ident)
+            want[name].index_fill_(0, reused, ident)
+        _kernel_fold("slot", kind, got, inp, SCALE)
+        seg.fold_plain(kind, want, inp["slots"], inp["vals"])
+        torch.cuda.synchronize()
+        for name in kind.fields:
+            _same(got[name], want[name], f"reuse/{kind_name}/{name}")
