@@ -1505,6 +1505,7 @@ class _StatefulBatchRt(_OpRt):
         self._wagg_hint: Optional[datetime] = None
         spec = op.conf.get("_accel")
         if driver.accel:
+            from bytewax_tpu_torch.engine.scan_accel import ScanAccelSpec
             from bytewax_tpu_torch.engine.window_accel import WindowAccelSpec
 
             if isinstance(spec, AccelSpec):
@@ -1517,10 +1518,20 @@ class _StatefulBatchRt(_OpRt):
                 self.agg = make_agg_state(spec.kind, driver=driver)
             elif isinstance(spec, WindowAccelSpec):
                 # Sliding/tumbling or session device windower, per
-                # the spec subtype.  Scan and infer steps are not
-                # lowered by the port yet (engine/flatten.py) and run
-                # on the host tier.
+                # the spec subtype.
                 self.wagg = spec.make_state()
+            elif isinstance(spec, ScanAccelSpec):
+                # Per-row-emitting stateful_map lowering (segmented
+                # device scan over per-key numeric state).
+                self.sagg = spec.make_state()
+            elif type(spec).__name__ == "InferAccelSpec" and (
+                os.environ.get("BYTEWAX_TPU_INFER_DEVICE", "1") != "0"
+            ):
+                # Batched model scoring (op.infer): the forward pass
+                # over broadcast params on the device.  The knob forces
+                # the host numpy apply without disabling every other
+                # device tier the flow may carry.
+                self.iagg = spec.make_state()
         # Tiered key-state residency (docs/state-residency.md): with
         # BYTEWAX_TPU_STATE_BUDGET set, the keyed-aggregation and scan
         # tiers wrap in a manager that bounds device-resident keys,

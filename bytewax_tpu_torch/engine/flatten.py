@@ -26,15 +26,9 @@ def _find_core_stateful(op: Operator) -> Optional[Operator]:
 def _annotate_accel(op: Operator) -> None:
     """Lowering pass: recognize aggregation shapes and annotate their
     core ``stateful_batch`` with a device spec so the driver folds
-    them on device instead of per-key Python logics.
-
-    Keyed aggregations (``reduce_final`` with a marked reducer,
-    ``stats_final``) and windowed folds (``count_window``,
-    ``fold_window``, ``reduce_window``) are the shapes the port lowers
-    so far; scans and inference run on the host tier.
-    """
+    them on device instead of per-key Python logics."""
     from bytewax_tpu_torch.engine.xla import AccelSpec
-    from bytewax_tpu_torch.xla import Reducer
+    from bytewax_tpu_torch.xla import Reducer, ScanMap
 
     spec = None
     if op.name == "reduce_final" and isinstance(op.conf.get("reducer"), Reducer):
@@ -43,6 +37,30 @@ def _annotate_accel(op: Operator) -> None:
         spec = AccelSpec("stats")
     elif op.name in ("count_window", "fold_window", "reduce_window"):
         spec = _window_accel_spec(op)
+    elif op.name == "stateful_map" and isinstance(
+        op.conf.get("mapper"), ScanMap
+    ):
+        # The mapper names its own device lowering: any ScanKind —
+        # built-in or user-registered — lowers through the one
+        # generic path; mappers returning None stay host-tier (they
+        # are still valid plain mappers).
+        kind = op.conf["mapper"].device_kind()
+        if kind is not None:
+            from bytewax_tpu_torch.engine.scan_accel import ScanAccelSpec
+
+            spec = ScanAccelSpec(kind)
+    elif op.name == "infer":
+        # Model scoring always lowers: the spec's batched forward
+        # pass is the step's one semantics (the driver's infer
+        # runtime owns both tiers, so accel-off runs the same spec's
+        # host apply, not per-key Python logics).
+        from bytewax_tpu_torch.engine.infer import InferAccelSpec
+
+        spec = InferAccelSpec(
+            op.conf["apply_fn"],
+            op.conf["params"],
+            op.conf.get("host_apply"),
+        )
     if spec is not None:
         inner = _find_core_stateful(op)
         if inner is not None:

@@ -1,0 +1,153 @@
+"""Anomaly detector: per-key rolling z-score via ``stateful_map``
+(the repository's ``examples/anomaly_detector.py`` shape).
+
+The mapper is :func:`bytewax_tpu_torch.xla.zscore`, a marked
+``stateful_map`` the engine lowers to one segmented scan per
+micro-batch (per-key Welford state in slot-table tensors; on the card
+the ``welford`` instance of ``csrc/segment_scan.cu``); on the host tier
+it runs as a plain per-item mapper with identical semantics.  State is
+a ``(count, mean, m2)`` tuple, interchangeable between tiers, and with
+the JAX package, through recovery snapshots.
+"""
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import bytewax_tpu_torch.operators as op
+from bytewax_tpu_torch.dataflow import Dataflow
+from bytewax_tpu_torch.outputs import Sink
+
+__all__ = ["ZScoreState", "anomaly_flow", "anomaly_infer_flow"]
+
+
+@dataclass
+class ZScoreState:
+    """Welford running-variance state (kept for callers that drive
+    :func:`_update` directly; the flow itself uses tuple state)."""
+
+    count: int = 0
+    mean: float = 0.0
+    m2: float = 0.0
+
+
+def _update(
+    state: Optional[ZScoreState], value: float, threshold: float
+) -> Tuple[ZScoreState, Tuple[float, float, bool]]:
+    """Host-tier oracle for one z-score step (dataclass-state form)."""
+    from bytewax_tpu_torch.xla import zscore
+
+    st = None if state is None else (state.count, state.mean, state.m2)
+    (count, mean, m2), out = zscore(threshold)(st, value)
+    return ZScoreState(count, mean, m2), out
+
+
+def anomaly_flow(
+    source,
+    sink: Sink,
+    threshold: float = 3.0,
+    fmt=None,
+) -> Dataflow:
+    """Items are ``(key, value)``; emits ``(key, (value, zscore,
+    is_anomaly))`` per item with per-key online mean/variance state.
+
+    ``fmt`` optionally maps each scored item before the sink (the
+    human-facing example uses it for pretty printing).
+
+    >>> from bytewax_tpu_torch.testing import TestingSink, TestingSource, run_main
+    >>> out = []
+    >>> items = [("s", 1.0), ("s", 2.0), ("s", 9.0)]
+    >>> run_main(anomaly_flow(TestingSource(items), TestingSink(out)))
+    >>> [(k, (v, round(z, 3), a)) for k, (v, z, a) in out]
+    [('s', (1.0, 0.0, False)), ('s', (2.0, 0.0, False)), ('s', (9.0, 10.607, True))]
+    """
+    from bytewax_tpu_torch.xla import zscore
+
+    flow = Dataflow("anomaly_detector")
+    s = op.input("inp", flow, source)
+    scored = op.stateful_map("zscore", s, zscore(threshold))
+    if fmt is not None:
+        scored = op.map("fmt", scored, fmt)
+    op.output("out", scored, sink)
+    return flow
+
+
+def _welford_features(state, value):
+    """Keyed feature extractor for the ``op.infer`` port: emits the
+    PRE-update ``(value, count, value - mean, m2)`` row (matching the
+    bespoke mapper, which scores before the value folds in), then
+    applies the Welford update.  The residual ``value - mean`` is
+    computed here in float64 — re-deriving it on-device from float32
+    ``value`` and ``mean`` columns would cancel catastrophically on
+    near-mean rows."""
+    count, mean, m2 = (0, 0.0, 0.0) if state is None else state
+    feats = (float(value), float(count), float(value - mean), float(m2))
+    count += 1
+    delta = value - mean
+    mean += delta / count
+    m2 += delta * (value - mean)
+    return (count, mean, m2), feats
+
+
+def _zscore_apply(params, x):
+    """torch forward pass: z-score a ``[N, 4]`` pre-update Welford
+    batch against the broadcast ``threshold`` param."""
+    import torch
+
+    value, count, resid, m2 = x[:, 0], x[:, 1], x[:, 2], x[:, 3]
+    std = torch.sqrt(torch.clamp(m2 / torch.clamp(count - 1.0, min=1.0), min=0.0))
+    ok = (count >= 2.0) & (std > 0.0)
+    z = torch.where(ok, resid / torch.where(ok, std, torch.ones_like(std)), torch.zeros_like(resid))
+    flag = (torch.abs(z) > params["threshold"]).to(torch.float32)
+    return value, z, flag
+
+
+def _zscore_apply_host(params, x):
+    """numpy twin of :func:`_zscore_apply` (the demoted/host tier)."""
+    import numpy as np
+
+    value, count, resid, m2 = x[:, 0], x[:, 1], x[:, 2], x[:, 3]
+    std = np.sqrt(np.maximum(m2 / np.maximum(count - 1.0, 1.0), 0.0))
+    ok = (count >= 2.0) & (std > 0.0)
+    z = np.where(ok, resid / np.where(ok, std, 1.0), 0.0)
+    flag = (np.abs(z) > params["threshold"]).astype(np.float32)
+    return value, z, flag
+
+
+def _finalize(kv):
+    """Restore the bespoke flow's ``(value, z, is_anomaly)`` item
+    shape from the infer step's float columns."""
+    key, (value, z, flag) = kv
+    return key, (float(value), float(z), bool(flag > 0.5))
+
+
+def anomaly_infer_flow(
+    source,
+    sink: Sink,
+    threshold: float = 3.0,
+    fmt=None,
+) -> Dataflow:
+    """The same anomaly detector as :func:`anomaly_flow`, rebuilt on
+    the streaming-inference subsystem (``op.infer``): a plain keyed
+    ``stateful_map`` extracts the pre-update Welford feature row per
+    value on the host tier, and a broadcast-params forward pass scores
+    the batch on the device tier, so the threshold is live-swappable
+    via ``driver.update_params()`` / ``POST /model``.  Output items
+    match :func:`anomaly_flow`'s (``tests/test_torch_infer.py`` pins
+    the parity)."""
+    import numpy as np
+
+    flow = Dataflow("anomaly_detector_infer")
+    s = op.input("inp", flow, source)
+    feats = op.stateful_map("welford", s, _welford_features)
+    scored = op.infer(
+        "zscore",
+        feats,
+        _zscore_apply,
+        {"threshold": np.float32(threshold)},
+        host_apply=_zscore_apply_host,
+    )
+    scored = op.map("finalize", scored, _finalize)
+    if fmt is not None:
+        scored = op.map("fmt", scored, fmt)
+    op.output("out", scored, sink)
+    return flow

@@ -1762,3 +1762,7 @@ class _StatefulMapLogic(StatefulLogic[V, W, S]):
 
     def snapshot(self) -> S:
         return copy.deepcopy(self.state)  # type: ignore[return-value]
+
+
+# Re-exported last: inference.py imports the core operators above.
+from bytewax_tpu_torch.operators.inference import infer  # noqa: E402,F401

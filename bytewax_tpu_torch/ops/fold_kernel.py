@@ -4,9 +4,9 @@
 This is the port's counterpart of the JAX package's Pallas kernel
 (``ops/pallas_fold.py``): the one device fold under every keyed
 aggregation.  The source is compiled with ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface, at first use, into
-``bytewax_tpu_torch/_build/`` (keyed by the source's hash), and loaded
-with ``ctypes``.  Nothing is built when this module is imported.
+a shared library with a plain C interface, at first use, and loaded
+with ``ctypes`` (:mod:`bytewax_tpu_torch.ops.cuda_build`).  Nothing is
+built when this module is imported.
 
 :func:`fold` is the only way in: it checks device, dtype, contiguity
 and shape, launches on PyTorch's current stream (the kernel sizes its
@@ -17,15 +17,12 @@ which the entry points there pick only for CPU tensors.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 from typing import Dict, Optional
 
 import torch
+
+from bytewax_tpu_torch.ops import cuda_build
 
 __all__ = [
     "SRC_EXT16",
@@ -44,9 +41,7 @@ _OPS = {"add": 0, "min": 1, "max": 2}
 _COUNT_BIT = 4
 _MAX_FIELDS = 4
 
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "segment_fold.cu"
-_BUILD_DIR = _PKG / "_build"
+_SRC = cuda_build.CSRC / "segment_fold.cu"
 
 #: Kernel launches since import (or since a caller reset it to 0).
 launches = 0
@@ -57,53 +52,13 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    msg = (
-        "building the segment-fold kernel needs nvcc (on PATH or under "
-        "CUDA_HOME); none was found"
-    )
-    raise RuntimeError(msg)
-
-
 def build() -> ctypes.CDLL:
     """Compile (once per source version) and load the kernel library."""
     global _lib, build_log
     with _lock:
         if _lib is not None:
             return _lib
-        digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-        out = _BUILD_DIR / f"libsegment_fold-{digest}.so"
-        if not out.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [
-                _nvcc(),
-                "-gencode=arch=compute_90a,code=sm_90a",
-                "-std=c++17",
-                "-O3",
-                "-shared",
-                "-Xcompiler",
-                "-fPIC",
-                "-Xptxas",
-                "-v",
-                "-o",
-                str(tmp),
-                str(_SRC),
-            ]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = res.stdout + res.stderr
-            if res.returncode != 0:
-                msg = f"nvcc failed ({res.returncode}):\n{build_log}"
-                raise RuntimeError(msg)
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
+        lib, build_log = cuda_build.load_library(_SRC, "segment_fold")
         fn = lib.bw_segment_fold
         fn.argtypes = [
             ctypes.c_int,  # source

@@ -32,13 +32,29 @@ Phases, each of which raises on any failure:
    and ``count_window`` over 60 s sessions (4·2^20 rows; each station
    goes quiet for 2–5 event-minutes), each with its p99 window-close
    latency;
-7. report  — one ``{"kernels": [...]}`` line.
+7. scan    — hold each instance of the segmented-scan kernel
+   (``welford``, ``ema``, ``extrema``) against its plain PyTorch
+   version on the card: 2^20 grouped rows over 10,000 keys (a fresh and
+   a resumed table), over 2^20 keys (mostly one-row segments, a grown
+   table), all on one key, NaN rows (extrema), runs of equal values
+   (welford: z and m2 exactly 0), EMA at alpha 1 and 1e-8; then time
+   each instance at 2^20 rows and 10,000 keys;
+8. anomaly — the scan tier and streaming inference through
+   ``run_main``: ``anomaly_flow`` over dictionary-encoded 2^20-row
+   batches from 10,000 sensors (8 batches) and over 2^20 sensors (2
+   batches), ``anomaly_infer_flow`` over 2^20 itemized rows, and the
+   ``ema`` and ``running_extrema`` flows at 10,000 sensors, each held
+   against a float64 numpy oracle (values exact and in order per key,
+   z within 1e-4 of max(1, |z|), flags equal, EMA within 1e-4
+   relative, extrema exact);
+9. report  — one ``{"kernels": [...]}`` line.
 
 Phases 5 and 6 hold their output against a float64 numpy oracle of
 the same semantics: counts, min and max exactly, means within 1e-5 of
-the rows' mean absolute value.  Every phase that drives a flow resets the kernel's launch
-count just before ``run_main`` and fails if the run launched it no
-time.
+the rows' mean absolute value.  Every phase that drives a flow resets
+both kernels' launch counts just before ``run_main`` and fails if the
+run launched its kernel no time (phase 8 also fails on any step
+demoted to the host tier).
 
 Every result line is JSON and carries the card's name and power
 limit.  The last line is ``{"ok": true, "device": {...}}``.
@@ -87,6 +103,17 @@ MEAN_RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12
 #: float32 rate outside the tensor cores (H100 SXM data sheet).
 F32_OPS_PER_S = 67e12
+#: Phases 7 and 8: rows per batch, sensors, batches of each flow.
+SCAN_ROWS = 1 << 20
+SCAN_KEYS = 10_000
+ANOMALY_BATCHES = 8
+WIDE_KEYS = 1 << 20
+WIDE_BATCHES = 2
+SCAN_FLOW_BATCHES = 2
+THRESHOLD = 3.0
+EMA_ALPHA = 0.3
+#: z tolerance, relative to max(1, |z|) (the reference's bar is 1e-4).
+Z_RTOL = 1e-4
 
 
 def _card() -> dict:
@@ -130,13 +157,16 @@ def _time_ms(fn, reps: int) -> float:
 
 
 #: The segment-fold kernel's name, as the profiler lists it.
-FOLD_KERNEL = "fold_shared"
+FOLD_KERNEL = ("fold_shared",)
+#: The segmented-scan kernel's three launches.
+SCAN_KERNEL = ("scan_reduce", "scan_carry", "scan_apply")
 
 
-def _profiled_ms(fn, reps: int):
-    """Device milliseconds per call of the segment-fold kernel, from
-    ``torch.profiler``'s ``key_averages()`` (None when the profiler
-    shows no device time for it)."""
+def _profiled_ms(fn, reps: int, names=FOLD_KERNEL):
+    """Device milliseconds per call summed over the kernels whose name
+    contains one of ``names``, from ``torch.profiler``'s
+    ``key_averages()`` (None when the profiler shows no device time for
+    them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -148,7 +178,7 @@ def _profiled_ms(fn, reps: int):
         torch.cuda.synchronize()
     total = 0.0
     for evt in prof.key_averages():
-        if FOLD_KERNEL in evt.key:
+        if any(name in evt.key for name in names):
             us = getattr(evt, "device_time_total", None)
             if us is None:
                 us = getattr(evt, "cuda_time_total", 0.0)
@@ -606,25 +636,28 @@ def _recording_states(timed=()):
 
 def _run_flow(flow) -> dict:
     """``run_main`` with every kernel count set to 0 just before it;
-    returns wall seconds, launches and the engine's phase seconds."""
+    returns wall seconds, each kernel's launches (``launches`` for the
+    segment fold, ``scan_launches`` for the segmented scan) and the
+    engine's phase seconds."""
     import torch
 
     from bytewax_tpu_torch.engine import flight
-    from bytewax_tpu_torch.ops import fold_kernel
+    from bytewax_tpu_torch.ops import fold_kernel, scan_kernel
     from bytewax_tpu_torch.testing import run_main
 
     phases_before = dict(flight.RECORDER.phase_totals)
     counters_before = dict(flight.RECORDER.counters)
     torch.cuda.synchronize()
     fold_kernel.launches = 0
+    scan_kernel.launches = 0
     t0 = time.perf_counter()
     run_main(flow)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = fold_kernel.launches
     return {
         "seconds": seconds,
-        "launches": launches,
+        "launches": fold_kernel.launches,
+        "scan_launches": scan_kernel.launches,
         "phase_seconds": {
             name: total - phases_before.get(name, 0.0)
             for name, total in flight.RECORDER.phase_totals.items()
@@ -1352,6 +1385,521 @@ def phase_windows(card: dict, n: int, n_keys: int, cases) -> dict:
     }
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+
+def _scan_kinds():
+    """Instance name -> a kind of that instance, as the flows build it."""
+    from bytewax_tpu_torch.ops import scan as scan_ops
+
+    return {
+        "welford": scan_ops.WelfordZScore(THRESHOLD),
+        "ema": scan_ops.Ema(EMA_ALPHA),
+        "extrema": scan_ops.RunningExtrema(),
+    }
+
+
+def _scan_case(kind, n: int, n_keys: int, capacity: int, seed: int, resumed=False,
+               nan_share=0.0, equal=False):
+    """A table (fresh, or holding state consistent with its kind) and
+    ``n`` grouped rows of ``n_keys`` keys on distinct slots."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    fields = {
+        name: torch.full((capacity,), init, dtype=dtype, device=DEV)
+        for name, (init, dtype) in kind.fields.items()
+    }
+    m = capacity - 1
+    if resumed:
+        def put(name, arr):
+            fields[name][:m] = torch.from_numpy(np.asarray(arr)).to(DEV)
+
+        count = rng.randint(0, 40, m).astype(np.int32)
+        if kind.kernel == "welford":
+            put("count", count)
+            put("mean", (rng.randn(m) * 5 + 20).astype(np.float32))
+            put("m2", (rng.rand(m) * 30 * np.maximum(count - 1, 0)).astype(np.float32))
+        elif kind.kernel == "ema":
+            put("count", count)
+            put("s", ((rng.randn(m) * 5 + 20) * (1 - (1 - kind.alpha) ** count)).astype(np.float32))
+        else:
+            lo = rng.randn(m) * 5 + 20
+            put("mn", lo.astype(np.float32))
+            put("mx", (lo + rng.rand(m) * 10).astype(np.float32))
+    keys = np.sort(rng.randint(0, n_keys, n))
+    slot_of = rng.permutation(m)[:n_keys].astype(np.int32)
+    vals = (keys % 7 * 1.5) if equal else (rng.randn(n) * 5 + 20)
+    vals = vals.astype(np.float32)
+    vals[rng.rand(n) < nan_share] = np.nan
+    slots = torch.from_numpy(slot_of[keys]).to(DEV)
+    return fields, slots, torch.from_numpy(vals).to(DEV), len(np.unique(keys))
+
+
+def _scan_compare(kind, fields, slots, vals, tag: str, worst: dict) -> None:
+    """The kernel (``kind.run`` on the card) against the plain version
+    (``kind.plain``) from the same table: counts and extrema exactly,
+    NaN in the same places; float32 states within 1e-5 relative, z
+    within ``Z_RTOL`` of max(1, |z|), the EMA within 1e-4 relative."""
+    import torch
+
+    want = {k: v.clone() for k, v in fields.items()}
+    got_outs, _ = kind.run(fields, slots, vals)
+    want_outs, _ = kind.plain(want, slots, vals)
+    torch.cuda.synchronize()
+    real = slice(0, fields[next(iter(fields))].shape[0] - 1)  # scratch excluded
+
+    def exact(g, w, what):
+        nan = torch.isnan(w) if w.is_floating_point() else torch.zeros_like(w, dtype=torch.bool)
+        if not torch.equal(torch.isnan(g) if g.is_floating_point() else nan, nan) or not torch.equal(
+            g[~nan], w[~nan]
+        ):
+            msg = f"scan {tag}/{what}: kernel != plain"
+            raise AssertionError(msg)
+        worst["nan"] += int(nan.sum())
+
+    def close(g, w, rtol, what):
+        err = float(((g.double() - w.double()).abs() / w.double().abs().clamp(min=1.0)).max())
+        worst[what] = max(worst.get(what, 0.0), err)
+        if not err <= rtol:
+            msg = f"scan {tag}/{what}: error {err} over {rtol}"
+            raise AssertionError(msg)
+
+    for name, (_init, dtype) in kind.fields.items():
+        g, w = fields[name][real], want[name][real]
+        if dtype == torch.int32 or kind.kernel == "extrema":
+            exact(g, w, name)
+        else:
+            close(g, w, 1e-5, f"{kind.kernel}_{name}")
+    for i, (g, w) in enumerate(zip(got_outs, want_outs)):
+        if kind.kernel == "extrema":
+            exact(g, w, f"out{i}")
+        elif kind.kernel == "welford":
+            close(g, w, Z_RTOL, "z")
+        else:
+            close(g, w, 1e-4, "ema")
+    worst["cases"] += 1
+
+
+def phase_scan(card: dict, n: int, n_keys: int) -> dict:
+    """Phase 7: the kernel against its plain version, then its times."""
+    import torch
+
+    from bytewax_tpu_torch.ops import scan as scan_ops
+    from bytewax_tpu_torch.ops import scan_kernel
+
+    worst = {"cases": 0, "nan": 0}
+    kinds = _scan_kinds()
+    kinds_more = dict(kinds, ema_alpha1=scan_ops.Ema(1.0), ema_tiny=scan_ops.Ema(1e-8))
+    seed = 100
+    for name, kind in kinds_more.items():
+        for layout, keys, capacity in (
+            ("10k_keys", n_keys, 16384),
+            ("2^20_keys", n, 1 << 21),
+            ("one_key", 1, 1024),
+        ):
+            for resumed in (False, True):
+                seed += 1
+                tag = f"{name}/{layout}/{'resumed' if resumed else 'fresh'}"
+                case = _scan_case(kind, n, keys, capacity, seed=seed, resumed=resumed)
+                _scan_compare(kind, *case[:3], tag, worst)
+    fields, slots, vals, _ = _scan_case(kinds["extrema"], n, n_keys, 16384, seed=5, nan_share=1e-3)
+    _scan_compare(kinds["extrema"], fields, slots, vals, "extrema/nan", worst)
+    if worst["nan"] == 0:
+        msg = "the NaN case left no NaN in the extrema"
+        raise AssertionError(msg)
+    kind = kinds["welford"]
+    fields, slots, vals, _ = _scan_case(kind, n, n_keys, 16384, seed=6, equal=True)
+    for _ in range(2):  # the second batch carries the first one's state in
+        (z,), _ = kind.run(fields, slots, vals)
+        torch.cuda.synchronize()
+        if float(z.abs().max()) != 0.0 or float(fields["m2"].abs().max()) != 0.0:
+            msg = "equal values left a non-zero z or m2"
+            raise AssertionError(msg)
+    worst["cases"] += 1
+    _emit(card, "scan", rows=n, keys=n_keys, checked_cases=worst.pop("cases"),
+          nan_matched=worst.pop("nan"), max_rel_err=worst)
+
+    times = {name: _time_scan(card, kind, n, n_keys, 16384) for name, kind in kinds.items()}
+    # The welford instance at the other shapes the main path gives it.
+    times["welford_2^20_keys"] = _time_scan(card, kinds["welford"], n, n, 1 << 21)
+    times["welford_one_key"] = _time_scan(card, kinds["welford"], n, 1, 1024)
+    return {"max_rel_err": max(worst.values()), "times": times,
+            "launches_while_checking": scan_kernel.launches}
+
+
+#: State bytes per key, and float operations per row (two merges and
+#: the emission), of each instance.
+_SCAN_STATE_BYTES = {"welford": 12, "ema": 8, "extrema": 8}
+_SCAN_OPS_PER_ROW = {"welford": 25, "ema": 14, "extrema": 6}
+
+
+def _time_scan(card: dict, kind, n: int, n_keys: int, capacity: int) -> dict:
+    """One instance at a shape of the anomaly path (``n`` grouped rows
+    of ``n_keys`` keys): device ms per call (three launches), host µs
+    per call, the plain version's ms, and the bound.  No single PyTorch
+    call computes a segmented scan, so there is no library time."""
+    fields, slots, vals, segments = _scan_case(kind, n, n_keys, capacity, seed=8)
+
+    def kernel():
+        kind.run(fields, slots, vals)
+
+    plain_fields = {k: v.clone() for k, v in fields.items()}
+
+    def plain():
+        kind.plain(plain_fields, slots, vals)
+
+    profiled_ms = _profiled_ms(kernel, 50, SCAN_KERNEL)
+    graph_ms = _graph_ms(kernel)
+    ms = profiled_ms if profiled_ms is not None else graph_ms
+    n_out = 2 if kind.kernel == "extrema" else 1
+    bytes_moved = 8 * n + 4 * n_out * n + 2 * segments * _SCAN_STATE_BYTES[kind.kernel]
+    ops = _SCAN_OPS_PER_ROW[kind.kernel] * n
+    res = {
+        "ms": ms,
+        "ms_from": "profiler" if profiled_ms is not None else "cuda_graph",
+        "graph_ms": graph_ms,
+        "host_us": _host_us(kernel, 200),
+        "plain_ms": _time_ms(plain, 10),
+        "library_ms": None,
+        "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
+        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations",
+    }
+    _emit(card, "scan_time", instance=kind.kernel, rows=n, keys=n_keys, segments=segments,
+          capacity=capacity,
+          library="none: no single PyTorch call computes a segmented scan", **res)
+    return res
+
+
+# -- phase 8 -----------------------------------------------------------------
+
+
+def _anomaly_data(n_batches: int, n: int, n_keys: int, seed: int):
+    """Sensor readings and their float64 oracle, made together.
+
+    Each batch holds ``n`` rows of sensors drawn uniformly from
+    ``n_keys``.  A sensor's readings are one-decimal values around its
+    own level and spread, with a rare outlier; each is generated in
+    the sensor's order against the oracle's running Welford state, and
+    redrawn while its oracle z lies within 1e-3 (relative) of the
+    threshold, so that float32 z cannot flip a flag.  Returns per-batch
+    ``(ids int32, values float32)`` and per-row oracle ``(z, flag)`` in
+    input order, plus the per-(sensor, rank) value grid for the EMA and
+    extrema oracles."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    ids_b = [rng.randint(0, n_keys, n).astype(np.int32) for _ in range(n_batches)]
+    ids = np.concatenate(ids_b)
+    order = np.argsort(ids, kind="stable")
+    counts = np.bincount(ids, minlength=n_keys)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.empty(len(ids), dtype=np.int64)
+    rank[order] = np.arange(len(ids)) - np.repeat(starts, counts)
+    level = rng.uniform(-10.0, 30.0, n_keys)
+    spread = rng.uniform(0.5, 5.0, n_keys)
+    width = int(counts.max())
+    grid = np.zeros((n_keys, width))
+    z_grid = np.zeros((n_keys, width))
+    count = np.zeros(n_keys, dtype=np.int64)
+    mean = np.zeros(n_keys)
+    m2 = np.zeros(n_keys)
+    band = 1e-3 * max(1.0, THRESHOLD)
+    for t in range(width):
+        live = counts > t
+        cand = np.zeros(n_keys)
+        z = np.zeros(n_keys)
+        todo = live.copy()
+        for _attempt in range(20):
+            if not todo.any():
+                break
+            draw = level + spread * rng.randn(n_keys)
+            jump = rng.rand(n_keys) < 0.002
+            draw[jump] += np.sign(rng.randn(jump.sum())) * 8 * spread[jump]
+            v = np.round(draw, 1).astype(np.float32).astype(np.float64)
+            cand = np.where(todo, v, cand)
+            have = (count >= 2) & (m2 > 0)
+            std = np.sqrt(np.where(have, m2, 1.0) / np.maximum(count - 1, 1))
+            z = np.where(have, (cand - mean) / std, 0.0)
+            todo = live & (np.abs(np.abs(z) - THRESHOLD) < band)
+        if todo.any():
+            msg = "could not keep every z away from the threshold"
+            raise AssertionError(msg)
+        grid[:, t] = cand
+        z_grid[:, t] = z
+        # The host mapper's Welford update, in float64.
+        c1 = np.where(live, count + 1, count)
+        delta = cand - mean
+        new_mean = mean + delta / np.maximum(c1, 1)
+        m2 = np.where(live, m2 + delta * (cand - new_mean), m2)
+        mean = np.where(live, new_mean, mean)
+        count = c1
+    vals = grid[ids, rank].astype(np.float32)
+    z_rows = z_grid[ids, rank]
+    vals_b = np.split(vals, np.cumsum([len(b) for b in ids_b])[:-1])
+    return {
+        "ids_b": ids_b,
+        "vals_b": vals_b,
+        "ids": ids,
+        "rank": rank,
+        "grid": grid,
+        "counts": counts,
+        "z": z_rows,
+        "flag": np.abs(z_rows) > THRESHOLD,
+    }
+
+
+def _by_key(ids, cols):
+    """Rows stably sorted by key: each key's rows in their order."""
+    import numpy as np
+
+    order = np.argsort(ids, kind="stable")
+    return ids[order], [c[order] for c in cols]
+
+
+def _out_columns(out, vocab_index: dict, width: int):
+    """Scored items ``(key, (value, *outs))`` as numpy columns: key ids
+    and ``width`` value columns."""
+    import numpy as np
+
+    n = len(out)
+    ids = np.fromiter((vocab_index[k] for k, _r in out), dtype=np.int64, count=n)
+    cols = [np.fromiter((r[j] for _k, r in out), dtype=np.float64, count=n) for j in range(width)]
+    return ids, cols
+
+
+def _check_scored(name: str, out, vocab_index, data, rows: slice, kind: str) -> dict:
+    """A flow's output against the oracle: the same rows per key, in
+    order, with exact values; then per kind: z and flags, the EMA, or
+    the running extrema."""
+    import numpy as np
+
+    width = {"zscore": 3, "ema": 2, "extrema": 3}[kind]
+    n = rows.stop - rows.start
+    if len(out) != n:
+        msg = f"{name}: {len(out)} rows out, {n} in"
+        raise AssertionError(msg)
+    got_ids, got = _out_columns(out, vocab_index, width)
+    ids = data["ids"][rows]
+    rank = data["rank"][rows]
+    grid = data["grid"]
+    if kind == "zscore":
+        want = [grid[ids, rank], data["z"][rows], data["flag"][rows].astype(np.float64)]
+    elif kind == "ema":
+        want = [grid[ids, rank], _ema_oracle(grid, data["counts"])[ids, rank]]
+    else:
+        v = grid
+        want = [grid[ids, rank], np.minimum.accumulate(v, axis=1)[ids, rank],
+                np.maximum.accumulate(v, axis=1)[ids, rank]]
+    gk, got = _by_key(got_ids, got)
+    wk, want = _by_key(ids.astype(np.int64), want)
+    if not np.array_equal(gk, wk) or not np.array_equal(got[0], want[0]):
+        msg = f"{name}: values differ from the input per key and order"
+        raise AssertionError(msg)
+    res = {}
+    if kind == "zscore":
+        err = np.abs(got[1] - want[1]) / np.maximum(1.0, np.abs(want[1]))
+        res["max_z_err"] = float(err.max())
+        if not res["max_z_err"] <= Z_RTOL:
+            msg = f"{name}: z off by {res['max_z_err']} of max(1, |z|)"
+            raise AssertionError(msg)
+        if not np.array_equal(got[2], want[2]):
+            msg = f"{name}: {int((got[2] != want[2]).sum())} flags differ"
+            raise AssertionError(msg)
+        res["anomalies"] = int(want[2].sum())
+        res["zero_z_rows"] = int((want[1] == 0).sum())
+    elif kind == "ema":
+        err = np.abs(got[1] - want[1]) / np.maximum(1.0, np.abs(want[1]))
+        res["max_ema_rel_err"] = float(err.max())
+        if not res["max_ema_rel_err"] <= 1e-4:
+            msg = f"{name}: EMA off by {res['max_ema_rel_err']}"
+            raise AssertionError(msg)
+    elif not (np.array_equal(got[1], want[1]) and np.array_equal(got[2], want[2])):
+        msg = f"{name}: running extrema differ"
+        raise AssertionError(msg)
+    return res
+
+
+def _ema_oracle(grid, counts):
+    """Per (sensor, rank) debiased EMA in float64."""
+    import numpy as np
+
+    s = np.zeros(grid.shape[0])
+    out = np.zeros_like(grid)
+    for t in range(grid.shape[1]):
+        live = counts > t
+        s = np.where(live, s * (1.0 - EMA_ALPHA) + EMA_ALPHA * grid[:, t], s)
+        out[:, t] = s / (1.0 - (1.0 - EMA_ALPHA) ** (t + 1))
+    return out
+
+
+def _recording_device_states():
+    """Patch ``make_scan_state`` and ``InferAccelSpec.make_state`` to
+    record every scan and infer state a run builds; returns the states
+    and the undo function."""
+    import bytewax_tpu_torch.engine.sharded_state as sharded_state
+    from bytewax_tpu_torch.engine.infer import InferAccelSpec
+
+    states = []
+    make_scan = sharded_state.make_scan_state
+    make_infer = InferAccelSpec.make_state
+
+    def recording_scan(kind):
+        states.append(make_scan(kind))
+        return states[-1]
+
+    def recording_infer(spec):
+        states.append(make_infer(spec))
+        return states[-1]
+
+    sharded_state.make_scan_state = recording_scan
+    InferAccelSpec.make_state = recording_infer
+
+    def undo():
+        sharded_state.make_scan_state = make_scan
+        InferAccelSpec.make_state = make_infer
+
+    return states, undo
+
+
+#: Where phase 8 splits the time of a run: (module, owner, attribute).
+_SPLITS = (
+    ("bytewax_tpu_torch.engine.scan_accel", None, "factorize_keys"),
+    ("bytewax_tpu_torch.engine.scan_accel", "ScanEmit", "items"),
+    ("bytewax_tpu_torch.engine.scan_accel", "DeviceScanState", "scan_rows"),
+    ("bytewax_tpu_torch.engine.infer", None, "extract_features"),
+    ("bytewax_tpu_torch.engine.infer", "DeviceInferState", "score_rows"),
+)
+
+
+def _scan_flow_case(card: dict, name: str, flow_of, data, kind: str, rows: slice,
+                    vocab_index, kernel_ms=None) -> dict:
+    """Run one flow of phase 8 and check it: its one device state on
+    the card (a scan state, or the infer step's params), launches of
+    the scan kernel (scan flows: ``kernel_ms`` is the instance's time
+    per call), no demotion, output against the oracle.  The line
+    carries the seconds spent in each function of ``_SPLITS``."""
+    import importlib
+
+    from bytewax_tpu_torch.testing import TestingSink
+
+    out = []
+    demoted_before = _demotions()
+    states, undo = _recording_device_states()
+    saved, timers = [], {}
+    for modname, owner, attr in _SPLITS:
+        obj = importlib.import_module(modname)
+        obj = getattr(obj, owner) if owner else obj
+        saved.append((obj, attr, getattr(obj, attr)))
+        timers[attr] = _Timed(obj, attr)
+    try:
+        run = _run_flow(flow_of(TestingSink(out)))
+    finally:
+        undo()
+        for obj, attr, orig in saved:
+            setattr(obj, attr, orig)
+    demoted = _demotions() - demoted_before
+    if demoted:
+        msg = f"{name}: {demoted} steps demoted to the host tier"
+        raise AssertionError(msg)
+    if len(states) != 1 or states[0].device.type != DEV:
+        msg = f"{name}: device state not on cuda: {[s.device for s in states]}"
+        raise AssertionError(msg)
+    if kernel_ms is not None and run["scan_launches"] <= 0:
+        msg = f"{name}: the segmented-scan kernel was launched no time"
+        raise AssertionError(msg)
+    checked = _check_scored(name, out, vocab_index, data, rows, kind)
+    n = rows.stop - rows.start
+    _emit(
+        card,
+        "anomaly",
+        flow=name,
+        rows=n,
+        seconds=run["seconds"],
+        rows_per_s=n / run["seconds"],
+        scan_launches=run["scan_launches"],
+        fold_launches=run["launches"],
+        table_capacity=getattr(states[0], "capacity", None),
+        step_demotions=demoted,
+        phase_seconds=run["phase_seconds"],
+        split_seconds={a: t.seconds for a, t in timers.items() if t.calls},
+        split_calls={a: t.calls for a, t in timers.items() if t.calls},
+        # Kernel time over wall time, from two measured numbers.
+        kernel_busy_share=None
+        if kernel_ms is None
+        else run["scan_launches"] * kernel_ms * 1e-3 / run["seconds"],
+        counters=run["counters"],
+        **checked,
+    )
+    return run
+
+
+def phase_anomaly(card: dict, n: int, n_keys: int, times: dict) -> dict:
+    """Phase 8: the anomaly detector and the other scan flows
+    (``times``: phase 7's times of each kernel instance)."""
+    import numpy as np
+
+    import bytewax_tpu_torch.operators as op
+    from bytewax_tpu_torch import xla
+    from bytewax_tpu_torch.dataflow import Dataflow
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.models.anomaly import anomaly_flow, anomaly_infer_flow
+    from bytewax_tpu_torch.models.brc import ArrayBatchSource
+
+    launches = {}
+
+    def columnar(data, vocab, batches=None):
+        pairs = list(zip(data["ids_b"], data["vals_b"]))[:batches]
+        return [ArrayBatch({"key_id": i, "value": v}, key_vocab=vocab) for i, v in pairs]
+
+    for label, keys, n_batches, seed in (
+        ("anomaly_flow", n_keys, ANOMALY_BATCHES, 20),
+        ("anomaly_flow_2^20_sensors", WIDE_KEYS, WIDE_BATCHES, 21),
+    ):
+        data = _anomaly_data(n_batches, n, keys, seed)
+        vocab = np.array([f"sensor_{i:07d}" for i in range(keys)])
+        index = {k: i for i, k in enumerate(vocab.tolist())}
+        batches = columnar(data, vocab)
+        run = _scan_flow_case(
+            card, label,
+            lambda sink, b=batches: anomaly_flow(ArrayBatchSource(b), sink, threshold=THRESHOLD),
+            data, "zscore", slice(0, n * n_batches), index, times["welford"]["ms"],
+        )
+        launches[label] = run["scan_launches"]
+        if label == "anomaly_flow":
+            sensors = (data, vocab, index)
+
+    data, vocab, index = sensors
+    # The infer form over the first batch's rows as Python items: a
+    # per-item host mapper, then the forward pass on the card.
+    items = list(zip(vocab[data["ids_b"][0]].tolist(), data["vals_b"][0].tolist()))
+    chunks = [items[i : i + (1 << 16)] for i in range(0, len(items), 1 << 16)]
+    _scan_flow_case(
+        card, "anomaly_infer_flow",
+        lambda sink: anomaly_infer_flow(ArrayBatchSource(chunks), sink, threshold=THRESHOLD),
+        data, "zscore", slice(0, n), index,
+    )
+
+    for label, mapper, kind, instance in (
+        ("ema", xla.ema(EMA_ALPHA), "ema", "ema"),
+        ("running_extrema", xla.running_extrema(), "extrema", "extrema"),
+    ):
+        batches = columnar(data, vocab, SCAN_FLOW_BATCHES)
+
+        def flow_of(sink, b=batches, m=mapper, label=label):
+            flow = Dataflow(label)
+            s = op.input("inp", flow, ArrayBatchSource(b))
+            s = op.stateful_map("scan", s, m)
+            op.output("out", s, sink)
+            return flow
+
+        run = _scan_flow_case(card, label, flow_of, data, kind,
+                              slice(0, n * SCAN_FLOW_BATCHES), index, times[instance]["ms"])
+        launches[label] = run["scan_launches"]
+    return launches
+
+
 def main() -> int:
     if not (HERE / "bytewax_tpu_torch" / "csrc" / "segment_fold.cu").exists():
         print(
@@ -1369,11 +1917,21 @@ def main() -> int:
     os.environ.pop("BYTEWAX_TPU_PLATFORM", None)  # the card, never the CPU
     card = _card()
 
-    from bytewax_tpu_torch.ops import fold_kernel
+    from concurrent.futures import ThreadPoolExecutor
 
+    from bytewax_tpu_torch.ops import fold_kernel, scan_kernel
+
+    # One nvcc for each source, started together.
     t0 = time.perf_counter()
-    fold_kernel.build()
-    ptxas = [ln for ln in fold_kernel.build_log.splitlines() if "registers" in ln]
+    with ThreadPoolExecutor(2) as pool:
+        for built in [pool.submit(fold_kernel.build), pool.submit(scan_kernel.build)]:
+            built.result()
+    ptxas = [
+        ln
+        for mod in (fold_kernel, scan_kernel)
+        for ln in mod.build_log.splitlines()
+        if "registers" in ln or "Compiling entry" in ln
+    ]
     _emit(card, "build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     check = phase_kernel(card, KERNEL_ROWS, WINDOW_KERNEL_ROWS)
@@ -1396,8 +1954,12 @@ def main() -> int:
     launches["ingest"] = phase_ingest(card, INGEST_LINES, INGEST_STATIONS, WORDCOUNT_LINES)
     for name, n in phase_windows(card, WINDOW_BATCH_ROWS, WINDOW_KEYS, WINDOW_CASES).items():
         launches[f"windows_{name}"] = n
+    scan = phase_scan(card, SCAN_ROWS, SCAN_KEYS)
+    scan_launches = phase_anomaly(card, SCAN_ROWS, SCAN_KEYS, scan["times"])
 
     times = shapes["brc_413"]
+    scan_times = scan["times"]["welford"]
+    keys = ("ms", "host_us", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card["line"])
     print(
         json.dumps(
@@ -1419,13 +1981,32 @@ def main() -> int:
                         "library_ms": times["library_ms"],
                         "shape": "brc_413",
                         "shapes": {
-                            name: {
-                                key: t[key]
-                                for key in ("ms", "host_us", "plain_ms", "bound_ms", "bound_by", "library_ms")
-                            }
-                            for name, t in shapes.items()
+                            name: {key: t[key] for key in keys} for name, t in shapes.items()
                         },
-                    }
+                    },
+                    {
+                        "name": "segment_scan",
+                        "route": "cuda",
+                        "source": "bytewax_tpu_torch/csrc/segment_scan.cu",
+                        "replaces": "bytewax_tpu/ops/scan.py:234 (zscore_scan_body), "
+                        "bytewax_tpu/ops/scan.py:152 (generic_scan_body)",
+                        "launches": sum(scan_launches.values()),
+                        "launches_by_path": scan_launches,
+                        "max_abs_err": scan["max_rel_err"],
+                        "max_err_is": "relative to max(1, |plain|); counts and extrema exact",
+                        "ms": scan_times["ms"],
+                        "host_us": scan_times["host_us"],
+                        "plain_ms": scan_times["plain_ms"],
+                        "bound_ms": scan_times["bound_ms"],
+                        "bound_by": scan_times["bound_by"],
+                        "library_ms": None,
+                        "library": "none: no single PyTorch call computes a segmented scan",
+                        "shape": "welford, 2^20 rows, 10,000 keys",
+                        "shapes": {
+                            name: {key: t[key] for key in keys}
+                            for name, t in scan["times"].items()
+                        },
+                    },
                 ]
             }
         )

@@ -1,6 +1,6 @@
 """Run the examples in the torch port's docstrings: the copied host
-modules and the operators, whose keyed aggregations and windowed folds
-run on the port's device tier (on the CPU here)."""
+modules and the operators, whose keyed aggregations, windowed folds,
+scans and inference run on the port's device tier (on the CPU here)."""
 
 import doctest
 import importlib
@@ -16,16 +16,22 @@ MODULES = [
     "bytewax_tpu_torch.connectors.stdio",
     "bytewax_tpu_torch.dataflow",
     "bytewax_tpu_torch.engine.backoff",
+    "bytewax_tpu_torch.engine.infer",
+    "bytewax_tpu_torch.engine.scan_accel",
     "bytewax_tpu_torch.errors",
     "bytewax_tpu_torch.inputs",
+    "bytewax_tpu_torch.models.anomaly",
     "bytewax_tpu_torch.operators",
     "bytewax_tpu_torch.operators.helpers",
+    "bytewax_tpu_torch.operators.inference",
     "bytewax_tpu_torch.operators.windowing",
+    "bytewax_tpu_torch.ops.scan",
     "bytewax_tpu_torch.ops.text",
     "bytewax_tpu_torch.outputs",
     "bytewax_tpu_torch.recovery",
     "bytewax_tpu_torch.testing",
     "bytewax_tpu_torch.tracing",
+    "bytewax_tpu_torch.xla",
 ]
 
 

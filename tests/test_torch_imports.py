@@ -60,8 +60,18 @@ def test_no_jax_or_reference_imports(path):
 
 
 #: Flows that a subprocess runs through the port, one per path: the
-#: keyed aggregation, file ingest into wordcount, and a windowed fold.
+#: keyed aggregation, file ingest into wordcount, a windowed fold, and
+#: the anomaly detector in both forms (scan, and inference).
 FLOWS = {
+    "anomaly": """
+from bytewax_tpu_torch.models.anomaly import anomaly_flow, anomaly_infer_flow
+items = [("s", 1.0), ("s", 2.0), ("s", 9.0)]
+run_main(anomaly_flow(TestingSource(items), TestingSink(out)))
+inferred = []
+run_main(anomaly_infer_flow(TestingSource(items), TestingSink(inferred)))
+flags = [[a for _k, (_v, _z, a) in rows] for rows in (out, inferred)]
+assert flags == [[False, False, True]] * 2, (out, inferred)
+""",
     "stats": """
 s = op.input("inp", flow, TestingSource([("a", 1.5), ("b", 2.0), ("a", -1.0)]))
 s = xla.stats_final("stats", s)

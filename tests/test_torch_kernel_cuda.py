@@ -200,3 +200,151 @@ def test_slot_rows_at_window_capacities(dev, integer, capacity):
         torch.cuda.synchronize()
         for name in kind.fields:
             _same(got[name], want[name], f"reuse/{kind_name}/{name}")
+
+
+# -- the segmented-scan kernel (csrc/segment_scan.cu) ------------------------
+#
+# Each built-in kind's kernel instance against its plain version on the
+# card, from the same table and rows.  Counts and extrema must match
+# exactly (NaN in the same places); the float32 Welford and EMA states
+# and outputs differ by rounding only (the kernel merges in a tree, the
+# plain versions in another order): z within 1e-4 of max(1, |z|), the
+# EMA within 1e-4 relative, mean, m2 and s within 1e-5 relative.
+
+from bytewax_tpu_torch.ops import scan as scan_ops  # noqa: E402
+from bytewax_tpu_torch.ops import scan_kernel  # noqa: E402
+
+SCAN_KINDS = {
+    "welford": lambda: scan_ops.WelfordZScore(3.0),
+    "ema": lambda: scan_ops.Ema(0.3),
+    "ema_alpha1": lambda: scan_ops.Ema(1.0),
+    "ema_tiny": lambda: scan_ops.Ema(1e-8),
+    "extrema": lambda: scan_ops.RunningExtrema(),
+}
+#: name -> (rows, keys, capacity)
+SCAN_LAYOUTS = {
+    "many_keys": (1 << 16, 600, 1024),
+    "one_key": (1 << 16, 1, 1024),
+    "one_row_segments": (1 << 16, 1 << 16, 1 << 17),
+}
+
+
+def _scan_table(kind, capacity, dev, resumed, rng):
+    fields = {
+        name: torch.full((capacity,), init, dtype=dtype, device=dev)
+        for name, (init, dtype) in kind.fields.items()
+    }
+    if not resumed:
+        return fields
+    m = capacity - 1
+    if kind.kernel == "welford":
+        count = rng.randint(0, 40, m)
+        fields["count"][:m] = torch.from_numpy(count.astype(np.int32)).to(dev)
+        fields["mean"][:m] = torch.from_numpy((rng.randn(m) * 5 + 20).astype(np.float32)).to(dev)
+        m2 = (rng.rand(m) * 30 * np.maximum(count - 1, 0)).astype(np.float32)
+        fields["m2"][:m] = torch.from_numpy(m2).to(dev)
+    elif kind.kernel == "ema":
+        count = rng.randint(0, 40, m)
+        fields["count"][:m] = torch.from_numpy(count.astype(np.int32)).to(dev)
+        s = (rng.randn(m) * 5 + 20) * (1 - (1 - kind.alpha) ** count)
+        fields["s"][:m] = torch.from_numpy(s.astype(np.float32)).to(dev)
+    else:
+        lo = rng.randn(m) * 5 + 20
+        fields["mn"][:m] = torch.from_numpy(lo.astype(np.float32)).to(dev)
+        fields["mx"][:m] = torch.from_numpy((lo + rng.rand(m) * 10).astype(np.float32)).to(dev)
+    return fields
+
+
+def _scan_rows(n, n_keys, capacity, dev, rng, nan_share=0.0):
+    """Grouped rows: ``n_keys`` keys on distinct slots of the table
+    (scratch excluded), each key's rows contiguous."""
+    keys = np.sort(rng.randint(0, n_keys, n))
+    slot_of = rng.permutation(capacity - 1)[:n_keys].astype(np.int32)
+    vals = (rng.randn(n) * 5 + 20).astype(np.float32)
+    vals[rng.rand(n) < nan_share] = np.nan
+    return (
+        torch.from_numpy(slot_of[keys]).to(dev),
+        torch.from_numpy(vals).to(dev),
+    )
+
+
+def _close(got, want, rtol, what):
+    err = (got.double() - want.double()).abs() / want.double().abs().clamp(min=1.0)
+    assert float(err.max()) <= rtol, f"{what}: error {float(err.max())}"
+
+
+def _check_scan(kind, fields, slots, vals):
+    want = {k: v.clone() for k, v in fields.items()}
+    before = scan_kernel.launches
+    got_outs, _ = kind.run(fields, slots, vals)
+    assert scan_kernel.launches == before + 1
+    want_outs, _ = kind.plain(want, slots, vals)
+    torch.cuda.synchronize()
+    # The plain versions write their non-tail rows to the scratch slot.
+    real = slice(0, fields[next(iter(fields))].shape[0] - 1)
+    for name, (_init, dtype) in kind.fields.items():
+        g, w = fields[name][real], want[name][real]
+        if dtype == torch.int32 or kind.kernel == "extrema":
+            _same(g, w, name)
+        else:
+            _close(g, w, 1e-5, name)
+    for i, (g, w) in enumerate(zip(got_outs, want_outs)):
+        if kind.kernel == "extrema":
+            _same(g, w, f"out{i}")
+        elif kind.kernel == "welford":
+            _close(g, w, 1e-4, "z")
+        else:
+            _close(g, w, 1e-4, "ema")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resumed", [False, True], ids=["fresh", "resumed"])
+@pytest.mark.parametrize("layout", sorted(SCAN_LAYOUTS))
+@pytest.mark.parametrize("name", sorted(SCAN_KINDS))
+def test_scan_kernel_matches_plain_on_card(dev, name, layout, resumed):
+    kind = SCAN_KINDS[name]()
+    n, n_keys, capacity = SCAN_LAYOUTS[layout]
+    rng = np.random.RandomState(n_keys + 7 * resumed)
+    fields = _scan_table(kind, capacity, dev, resumed, rng)
+    slots, vals = _scan_rows(n, n_keys, capacity, dev, rng)
+    _check_scan(kind, fields, slots, vals)
+
+
+@pytest.mark.cuda
+def test_scan_kernel_nan_rows_propagate_in_extrema(dev):
+    kind = scan_ops.RunningExtrema()
+    rng = np.random.RandomState(3)
+    fields = _scan_table(kind, 1024, dev, True, rng)
+    slots, vals = _scan_rows(1 << 16, 600, 1024, dev, rng, nan_share=1e-3)
+    _check_scan(kind, fields, slots, vals)
+    assert bool(torch.isnan(fields["mn"]).any())
+
+
+@pytest.mark.cuda
+def test_scan_kernel_keeps_m2_zero_over_equal_values(dev):
+    # Each key's rows all carry one value (repeating across keys): m2
+    # must stay exactly 0 and every z exactly 0, in this batch and the
+    # next, which carries the state in.
+    kind = scan_ops.WelfordZScore(3.0)
+    rng = np.random.RandomState(4)
+    fields = _scan_table(kind, 1024, dev, False, rng)
+    keys = np.sort(rng.randint(0, 600, 1 << 16))
+    slots = torch.from_numpy(keys.astype(np.int32)).to(dev)
+    vals = torch.from_numpy((keys % 7 * 1.5).astype(np.float32)).to(dev)
+    for _ in range(2):
+        (z,), _ = kind.run(fields, slots, vals)
+        torch.cuda.synchronize()
+        assert float(z.abs().max()) == 0.0
+        assert float(fields["m2"].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_scan_kernel_count_stays_exact_past_fp24(dev):
+    kind = scan_ops.WelfordZScore(3.0)
+    fields = _scan_table(kind, 16, dev, False, None)
+    fields["count"][3] = 1 << 24
+    fields["m2"][3] = 1000.0
+    slots = torch.full((5,), 3, dtype=torch.int32, device=dev)
+    kind.run(fields, slots, torch.ones(5, device=dev))
+    torch.cuda.synchronize()
+    assert int(fields["count"][3]) == (1 << 24) + 5
