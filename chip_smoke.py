@@ -33,12 +33,17 @@ Phases, each of which raises on any failure:
    goes quiet for 2–5 event-minutes), each with its p99 window-close
    latency;
 7. scan    — hold each instance of the segmented-scan kernel
-   (``welford``, ``ema``, ``extrema``) against its plain PyTorch
-   version on the card: 2^20 grouped rows over 10,000 keys (a fresh and
-   a resumed table), over 2^20 keys (mostly one-row segments, a grown
-   table), all on one key, NaN rows (extrema), runs of equal values
-   (welford: z and m2 exactly 0), EMA at alpha 1 and 1e-8; then time
-   each instance at 2^20 rows and 10,000 keys;
+   (``welford``, ``ema``, ``extrema``; one launch a call) against its
+   plain PyTorch version on the card: 2^20 grouped rows over 10,000
+   keys (a fresh and a resumed table), over 2^20 keys (mostly one-row
+   segments, a grown table), all on one key, NaN rows (extrema), runs
+   of equal values (welford: z and m2 exactly 0), EMA at alpha 1 and
+   1e-8, 2^20 + 37 rows (a ragged last tile), 5 rows (below one tile),
+   2^24 rows on one key (more tiles than the card holds at once), and
+   calls of every instance and several sizes back to back on one
+   stream with no sync between them; then time each instance at 2^20
+   rows and 10,000 keys, warm and with the L2 flushed before each
+   call;
 8. anomaly — the scan tier and streaming inference through
    ``run_main``: ``anomaly_flow`` over dictionary-encoded 2^20-row
    batches from 10,000 sensors (8 batches) and over 2^20 sensors (2
@@ -112,6 +117,9 @@ WIDE_BATCHES = 2
 SCAN_FLOW_BATCHES = 2
 THRESHOLD = 3.0
 EMA_ALPHA = 0.3
+#: Phase 7: rows of the one-key check with more tiles than the card
+#: holds at once (8192 tiles of 2048 rows).
+SCAN_DEEP_ROWS = 1 << 24
 #: z tolerance, relative to max(1, |z|) (the reference's bar is 1e-4).
 Z_RTOL = 1e-4
 
@@ -158,15 +166,21 @@ def _time_ms(fn, reps: int) -> float:
 
 #: The segment-fold kernel's name, as the profiler lists it.
 FOLD_KERNEL = ("fold_shared",)
-#: The segmented-scan kernel's three launches.
-SCAN_KERNEL = ("scan_reduce", "scan_carry", "scan_apply")
+#: The segmented-scan kernel's one launch (a template: one name for
+#: its three instances).
+SCAN_KERNEL = ("scan_onepass",)
+#: Bytes written between calls to flush the card's 50 MB L2.
+L2_FLUSH_BYTES = 128 << 20
 
 
-def _profiled_ms(fn, reps: int, names=FOLD_KERNEL):
-    """Device milliseconds per call summed over the kernels whose name
-    contains one of ``names``, from ``torch.profiler``'s
-    ``key_averages()`` (None when the profiler shows no device time for
-    them)."""
+def _profiled(fn, reps: int, names=FOLD_KERNEL, between=None) -> dict:
+    """Device milliseconds per launch of the kernels whose name contains
+    one of ``names``, from ``torch.profiler``'s ``key_averages()``
+    (``ms``, None when the profiler shows no device time for them); the
+    launches of those kernels per call that the device trace holds (it
+    can drop a few); and, from the host side, the kernel launches and
+    memsets per call of any kind (None with ``between``).  ``between``
+    runs before each call, outside the count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -174,16 +188,32 @@ def _profiled_ms(fn, reps: int, names=FOLD_KERNEL):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if between is not None:
+                between()
             fn()
         torch.cuda.synchronize()
     total = 0.0
+    count = 0
+    api = {"cudaLaunchKernel": 0, "cudaMemset": 0}
     for evt in prof.key_averages():
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            for prefix in api:
+                if evt.key.startswith(prefix):
+                    api[prefix] += evt.count
+            continue
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = getattr(evt, "cuda_time_total", 0.0)
         if any(name in evt.key for name in names):
-            us = getattr(evt, "device_time_total", None)
-            if us is None:
-                us = getattr(evt, "cuda_time_total", 0.0)
-            total += us / reps / 1e3
-    return total if total > 0 else None
+            total += us / 1e3
+            count += evt.count
+    host = between is None  # else the host counts hold between's too
+    return {
+        "ms": total / count if count else None,
+        "launches_per_call": count / reps,
+        "host_launches_per_call": api["cudaLaunchKernel"] / reps if host else None,
+        "host_memsets_per_call": api["cudaMemset"] / reps if host else None,
+    }
 
 
 def _graph_ms(fn, per_graph: int = 20, replays: int = 10) -> float:
@@ -213,19 +243,30 @@ def _graph_ms(fn, per_graph: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * per_graph)
 
 
-def _host_us(fn, reps: int) -> float:
+def _host_us(fn, reps: int, rounds: int = 5) -> float:
     """Host microseconds per call: the time to issue ``reps`` calls,
-    without waiting for the card."""
+    without waiting for the card; the median of ``rounds`` rounds (the
+    host's speed varies within a run)."""
+    return _host_us_alternating({"fn": fn}, reps, rounds)["fn"]
+
+
+def _host_us_alternating(fns: dict, reps: int, rounds: int = 5) -> dict:
+    """:func:`_host_us` of each function, their rounds taken in turn so
+    that all of them meet the same host."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
+    per_round = {name: [] for name in fns}
+    for fn in fns.values():
         fn()
-    seconds = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return seconds / reps * 1e6
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            per_round[name].append((time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
+    return {name: sorted(times)[rounds // 2] for name, times in per_round.items()}
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -460,6 +501,30 @@ def phase_kernel(card: dict, n: int, window_rows: int) -> dict:
     return {"max_abs_err": worst["abs"], "max_sum_err_over_bound": worst["ratio"]}
 
 
+def _packed_fold(kind, state, n: int, n_keys: int, gen):
+    """A 1BRC batch for the fold: ``n`` packed int16 rows of ``n_keys``
+    stations through an id->slot table (the last id to scratch).
+    Returns the wrapper's call and its inputs."""
+    import torch
+
+    from bytewax_tpu_torch.ops import fold_kernel
+
+    scale = 0.1
+    capacity = state[next(iter(state))].shape[0]
+    ext_to_slot = torch.arange(n_keys + 1, dtype=torch.int32, device=DEV)
+    ext_to_slot[-1] = capacity - 1
+    ids = torch.randint(0, n_keys, (n,), generator=gen, device=DEV, dtype=torch.int32)
+    q = torch.randint(-999, 1000, (n,), generator=gen, device=DEV, dtype=torch.int32)
+    packed = torch.stack([ids, q]).to(torch.int16).contiguous()
+
+    def kernel():
+        fold_kernel.fold(
+            kind, state, fold_kernel.SRC_PACKED, packed, None, ext_to_slot=ext_to_slot, scale=scale
+        )
+
+    return kernel, ext_to_slot, packed, scale
+
+
 def _time_main_shapes(
     card: dict, n: int, capacity: int, n_keys: int, source: str = "packed"
 ) -> dict:
@@ -486,24 +551,8 @@ def _time_main_shapes(
     state = seg.init_fields(kind, capacity, torch.float32, DEV)
     reps = 50
     if source == "packed":
-        scale = 0.1
-        n_map = n_keys + 1
-        ext_to_slot = torch.arange(n_map, dtype=torch.int32, device=DEV)
-        ext_to_slot[-1] = capacity - 1
-        ids = torch.randint(0, n_keys, (n,), generator=gen, device=DEV, dtype=torch.int32)
-        q = torch.randint(-999, 1000, (n,), generator=gen, device=DEV, dtype=torch.int32)
-        packed = torch.stack([ids, q]).to(torch.int16).contiguous()
-
-        def kernel():
-            fold_kernel.fold(
-                kind,
-                state,
-                fold_kernel.SRC_PACKED,
-                packed,
-                None,
-                ext_to_slot=ext_to_slot,
-                scale=scale,
-            )
+        kernel, ext_to_slot, packed, scale = _packed_fold(kind, state, n, n_keys, gen)
+        n_map = ext_to_slot.shape[0]
 
         def entry():
             seg.update_fields_packed(kind, state, ext_to_slot, packed, scale)
@@ -537,7 +586,7 @@ def _time_main_shapes(
         bytes_moved = 8 * n + 2 * 4 * n_fields * capacity
         ops = n_fields * n  # one combine per field
 
-    profiled_ms = _profiled_ms(kernel, reps)
+    profiled_ms = _profiled(kernel, reps)["ms"]
     graph_ms = _graph_ms(kernel)
     ms = profiled_ms if profiled_ms is not None else graph_ms
     host_us = _host_us(kernel, 200)
@@ -1448,6 +1497,14 @@ def _scan_compare(kind, fields, slots, vals, tag: str, worst: dict) -> None:
     got_outs, _ = kind.run(fields, slots, vals)
     want_outs, _ = kind.plain(want, slots, vals)
     torch.cuda.synchronize()
+    _scan_check(kind, fields, got_outs, want, want_outs, tag, worst)
+
+
+def _scan_check(kind, fields, got_outs, want, want_outs, tag: str, worst: dict) -> None:
+    """The kernel's table and outputs against the plain version's, under
+    :func:`_scan_compare`'s tolerances."""
+    import torch
+
     real = slice(0, fields[next(iter(fields))].shape[0] - 1)  # scratch excluded
 
     def exact(g, w, what):
@@ -1488,6 +1545,7 @@ def phase_scan(card: dict, n: int, n_keys: int) -> dict:
 
     from bytewax_tpu_torch.ops import scan as scan_ops
     from bytewax_tpu_torch.ops import scan_kernel
+    from bytewax_tpu_torch.ops import segment as seg
 
     worst = {"cases": 0, "nan": 0}
     kinds = _scan_kinds()
@@ -1518,15 +1576,72 @@ def phase_scan(card: dict, n: int, n_keys: int) -> dict:
             msg = "equal values left a non-zero z or m2"
             raise AssertionError(msg)
     worst["cases"] += 1
+    # The single pass's edges: a ragged last tile, a call below one
+    # tile, and more tiles than the card holds at once (one key, so
+    # every tile's look-back walks back to a published prefix).
+    for name, kind in kinds.items():
+        for rows, keys, capacity in ((n + 37, n_keys, 16384), (5, 2, 1024)):
+            seed += 1
+            case = _scan_case(kind, rows, keys, capacity, seed=seed, resumed=True)
+            _scan_compare(kind, *case[:3], f"{name}/{rows}_rows", worst)
+    for name in ("welford", "extrema"):
+        case = _scan_case(kinds[name], SCAN_DEEP_ROWS, 1, 1024, seed=7, resumed=True)
+        _scan_compare(kinds[name], *case[:3], f"{name}/2^24_rows_one_key", worst)
+    _scan_back_to_back(kinds_more, n, n_keys, worst)
     _emit(card, "scan", rows=n, keys=n_keys, checked_cases=worst.pop("cases"),
           nan_matched=worst.pop("nan"), max_rel_err=worst)
 
-    times = {name: _time_scan(card, kind, n, n_keys, 16384) for name, kind in kinds.items()}
+    # The fold wrapper on a 1BRC batch (2^20 rows, 10,000 stations),
+    # whose host time each scan timing takes in turn with its own.
+    fold_kind = seg.AGG_KINDS["stats"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1)
+    fold_state = seg.init_fields(fold_kind, 16384, torch.float32, DEV)
+    fold_call = _packed_fold(fold_kind, fold_state, n, n_keys, gen)[0]
+    times = {
+        name: _time_scan(card, kind, n, n_keys, 16384, fold_call) for name, kind in kinds.items()
+    }
     # The welford instance at the other shapes the main path gives it.
-    times["welford_2^20_keys"] = _time_scan(card, kinds["welford"], n, n, 1 << 21)
-    times["welford_one_key"] = _time_scan(card, kinds["welford"], n, 1, 1024)
+    times["welford_2^20_keys"] = _time_scan(card, kinds["welford"], n, n, 1 << 21, fold_call)
+    times["welford_one_key"] = _time_scan(card, kinds["welford"], n, 1, 1024, fold_call)
     return {"max_rel_err": max(worst.values()), "times": times,
             "launches_while_checking": scan_kernel.launches}
+
+
+def _scan_back_to_back(kinds: dict, n: int, n_keys: int, worst: dict) -> None:
+    """Calls of every instance and several sizes issued back to back on
+    one stream, with no sync between them (the workspace's tile counter
+    and status words carry over from call to call), each then held
+    against its plain version from the table it started from."""
+    import torch
+
+    from bytewax_tpu_torch.ops import scan_kernel
+
+    plan = [
+        ("welford", n, n_keys, 16384),
+        ("ema", 5, 2, 1024),
+        ("extrema", n + 37, 1, 1024),
+        ("ema_alpha1", n // 4, n // 4, 1 << 19),
+        ("welford", 3000, 1, 1024),
+        ("ema_tiny", n, n_keys, 16384),
+        ("extrema", n, n_keys, 16384),
+    ]
+    calls = []
+    for k, (name, rows, keys, capacity) in enumerate(plan):
+        kind = kinds[name]
+        fields, slots, vals, _ = _scan_case(kind, rows, keys, capacity, seed=300 + k, resumed=True)
+        calls.append((name, kind, fields, {f: v.clone() for f, v in fields.items()}, slots, vals))
+    torch.cuda.synchronize()
+    before = scan_kernel.launches
+    outs = [kind.run(fields, slots, vals)[0] for _n, kind, fields, _w, slots, vals in calls]
+    if scan_kernel.launches != before + len(calls):
+        msg = "back-to-back scan calls: not one launch a call"
+        raise AssertionError(msg)
+    torch.cuda.synchronize()
+    for (name, kind, fields, want, slots, vals), got in zip(calls, outs):
+        want_outs, _ = kind.plain(want, slots, vals)
+        torch.cuda.synchronize()
+        _scan_check(kind, fields, got, want, want_outs, f"{name}/back_to_back", worst)
 
 
 #: State bytes per key, and float operations per row (two merges and
@@ -1535,32 +1650,60 @@ _SCAN_STATE_BYTES = {"welford": 12, "ema": 8, "extrema": 8}
 _SCAN_OPS_PER_ROW = {"welford": 25, "ema": 14, "extrema": 6}
 
 
-def _time_scan(card: dict, kind, n: int, n_keys: int, capacity: int) -> dict:
+def _time_scan(card: dict, kind, n: int, n_keys: int, capacity: int, fold_call) -> dict:
     """One instance at a shape of the anomaly path (``n`` grouped rows
-    of ``n_keys`` keys): device ms per call (three launches), host µs
-    per call, the plain version's ms, and the bound.  No single PyTorch
-    call computes a segmented scan, so there is no library time."""
+    of ``n_keys`` keys): device ms per call (one launch), the wrapper's
+    host µs per call (``scan_kernel.scan``, its rounds taken in turn
+    with the fold wrapper's ``fold_call``: ``fold_host_us``), the plain
+    version's ms, and the bound.  No single PyTorch call computes a
+    segmented scan, so there is no library time.
+
+    ``ms`` is warm: the rows (8 MB) and outputs fit the card's 50 MB
+    L2, so it can read under the bound.  ``cold_ms`` writes
+    ``L2_FLUSH_BYTES`` before each call (outside the count): the time a
+    batch that has just arrived from the host takes, the one compared
+    with the bound."""
+    import torch
+
+    from bytewax_tpu_torch.ops import scan_kernel
+
     fields, slots, vals, segments = _scan_case(kind, n, n_keys, capacity, seed=8)
 
     def kernel():
         kind.run(fields, slots, vals)
+
+    def wrapper():
+        scan_kernel.scan(kind, fields, slots, vals)
 
     plain_fields = {k: v.clone() for k, v in fields.items()}
 
     def plain():
         kind.plain(plain_fields, slots, vals)
 
-    profiled_ms = _profiled_ms(kernel, 50, SCAN_KERNEL)
+    warm = _profiled(kernel, 50, SCAN_KERNEL)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=DEV)
+    cold = _profiled(kernel, 50, SCAN_KERNEL, between=lambda: flush.fill_(1.0))
+    del flush
+    if warm["host_launches_per_call"] > 1 or warm["host_memsets_per_call"] > 1:
+        msg = f"scan {kind.kernel}: {warm}: more than one launch (and one memset) a call"
+        raise AssertionError(msg)
+    profiled_ms = warm["ms"]
     graph_ms = _graph_ms(kernel)
     ms = profiled_ms if profiled_ms is not None else graph_ms
+    host = _host_us_alternating({"scan": wrapper, "fold": fold_call}, 200)
     n_out = 2 if kind.kernel == "extrema" else 1
     bytes_moved = 8 * n + 4 * n_out * n + 2 * segments * _SCAN_STATE_BYTES[kind.kernel]
     ops = _SCAN_OPS_PER_ROW[kind.kernel] * n
     res = {
         "ms": ms,
         "ms_from": "profiler" if profiled_ms is not None else "cuda_graph",
+        "cold_ms": cold["ms"],
         "graph_ms": graph_ms,
-        "host_us": _host_us(kernel, 200),
+        "launches_per_call": warm["host_launches_per_call"],
+        "memsets_per_call": warm["host_memsets_per_call"],
+        "traced_launches_per_call": warm["launches_per_call"],
+        "host_us": host["scan"],
+        "fold_host_us": host["fold"],
         "plain_ms": _time_ms(plain, 10),
         "library_ms": None,
         "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
@@ -1995,7 +2138,10 @@ def main() -> int:
                         "max_abs_err": scan["max_rel_err"],
                         "max_err_is": "relative to max(1, |plain|); counts and extrema exact",
                         "ms": scan_times["ms"],
+                        "cold_ms": scan_times["cold_ms"],
+                        "launches_per_call": scan_times["launches_per_call"],
                         "host_us": scan_times["host_us"],
+                        "fold_host_us": scan_times["fold_host_us"],
                         "plain_ms": scan_times["plain_ms"],
                         "bound_ms": scan_times["bound_ms"],
                         "bound_by": scan_times["bound_by"],
@@ -2003,7 +2149,7 @@ def main() -> int:
                         "library": "none: no single PyTorch call computes a segmented scan",
                         "shape": "welford, 2^20 rows, 10,000 keys",
                         "shapes": {
-                            name: {key: t[key] for key in keys}
+                            name: {key: t[key] for key in keys + ("cold_ms",)}
                             for name, t in scan["times"].items()
                         },
                     },

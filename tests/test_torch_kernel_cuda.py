@@ -226,6 +226,9 @@ SCAN_LAYOUTS = {
     "many_keys": (1 << 16, 600, 1024),
     "one_key": (1 << 16, 1, 1024),
     "one_row_segments": (1 << 16, 1 << 16, 1 << 17),
+    # The single pass's ragged last tile, and a call below one tile.
+    "ragged": ((1 << 16) + 37, 600, 1024),
+    "below_a_tile": (5, 2, 1024),
 }
 
 
@@ -348,3 +351,111 @@ def test_scan_kernel_count_stays_exact_past_fp24(dev):
     kind.run(fields, slots, torch.ones(5, device=dev))
     torch.cuda.synchronize()
     assert int(fields["count"][3]) == (1 << 24) + 5
+
+
+# -- the single-pass kernel's edges --------------------------------------------
+#
+# One launch a call, tiles of 2048 rows claimed in order, status words
+# tagged with a sequence number kept on the card (the ragged and
+# sub-tile sizes are layouts above): pointers that are not 16-byte
+# aligned (the scalar-load path), more tiles than the card holds at
+# once (one key, so every look-back walks), calls back to back on one
+# stream with no sync between them, and calls replayed in a CUDA graph.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SCAN_KINDS))
+def test_scan_kernel_unaligned_rows(dev, name):
+    kind = SCAN_KINDS[name]()
+    rng = np.random.RandomState(12)
+    fields = _scan_table(kind, 1024, dev, True, rng)
+    slots, vals = _scan_rows((1 << 16) + 1, 600, 1024, dev, rng)
+    slots, vals = slots[1:], vals[1:]
+    assert slots.data_ptr() % 16 and vals.data_ptr() % 16
+    _check_scan(kind, fields, slots, vals)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["welford", "extrema"])
+def test_scan_kernel_more_tiles_than_resident(dev, name):
+    kind = SCAN_KINDS[name]()
+    rng = np.random.RandomState(13)
+    fields = _scan_table(kind, 16, dev, True, rng)
+    slots, vals = _scan_rows(1 << 22, 1, 16, dev, rng)
+    _check_scan(kind, fields, slots, vals)
+
+
+@pytest.mark.cuda
+def test_scan_kernel_back_to_back_calls(dev):
+    # Calls of different instances and sizes on one stream, no sync
+    # between them; each then held against its plain version from the
+    # table it started from.
+    rng = np.random.RandomState(14)
+    calls = []
+    for name, n, n_keys in (
+        ("welford", 1 << 20, 10_000),
+        ("ema", 5, 2),
+        ("extrema", (1 << 20) + 37, 1),
+        ("welford", 3000, 3000),
+        ("ema_alpha1", 1 << 18, 600),
+    ):
+        kind = SCAN_KINDS[name]()
+        capacity = 1 << 15 if n_keys >= 600 else 1024
+        fields = _scan_table(kind, capacity, dev, True, rng)
+        slots, vals = _scan_rows(n, n_keys, capacity, dev, rng)
+        calls.append((kind, fields, {k: v.clone() for k, v in fields.items()}, slots, vals))
+    before = scan_kernel.launches
+    outs = [kind.run(fields, slots, vals)[0] for kind, fields, _w, slots, vals in calls]
+    assert scan_kernel.launches == before + len(calls)
+    torch.cuda.synchronize()
+    for (kind, fields, want, slots, vals), got_outs in zip(calls, outs):
+        want_outs, _ = kind.plain(want, slots, vals)
+        real = slice(0, fields[next(iter(fields))].shape[0] - 1)
+        for name, (_init, dtype) in kind.fields.items():
+            if dtype == torch.int32 or kind.kernel == "extrema":
+                _same(fields[name][real], want[name][real], name)
+            else:
+                _close(fields[name][real], want[name][real], 1e-5, name)
+        for g, w in zip(got_outs, want_outs):
+            if kind.kernel == "extrema":
+                _same(g, w, "out")
+            else:
+                _close(g, w, 1e-4, kind.kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["welford", "extrema"])
+def test_scan_kernel_replayed_in_a_cuda_graph(dev, name):
+    # Three calls captured once and replayed twice: six scans of the
+    # same rows, each carrying the last one's table in.
+    kind = SCAN_KINDS[name]()
+    rng = np.random.RandomState(15)
+    fields = _scan_table(kind, 1024, dev, True, rng)
+    slots, vals = _scan_rows(1 << 16, 600, 1024, dev, rng)
+    want = {k: v.clone() for k, v in fields.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kind.run(fields, slots, vals)  # builds, and sizes the workspace
+    torch.cuda.current_stream().wait_stream(side)
+    kind.plain(want, slots, vals)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(3):
+            outs, _ = kind.run(fields, slots, vals)
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    for _ in range(6):
+        want_outs, _ = kind.plain(want, slots, vals)
+    real = slice(0, 1023)
+    for fname, (_init, dtype) in kind.fields.items():
+        if dtype == torch.int32 or kind.kernel == "extrema":
+            _same(fields[fname][real], want[fname][real], fname)
+        else:
+            _close(fields[fname][real], want[fname][real], 1e-5, fname)
+    for g, w in zip(outs, want_outs):
+        if kind.kernel == "extrema":
+            _same(g, w, "out")
+        else:
+            _close(g, w, 1e-4, "z")

@@ -364,6 +364,236 @@ def test_reused_slot_starts_from_identity():
     assert dict(st.snapshots_for(["c", "b"])) == {"c": (1.0, 1.0), "b": (-3.0, -3.0)}
 
 
+# -- the kernel's single-pass decomposition, modelled on the CPU -------------
+#
+# ``csrc/segment_scan.cu`` runs one launch a call: tiles claimed in order,
+# each tile's aggregate (with the table state read at its last head)
+# published as status A, or at once as an inclusive prefix P when the
+# tile holds a head (whose element absorbs everything before it); a
+# look-back over the predecessors that stops at the first P; then every
+# row as
+# ``carry ⊕ prefix``, and the tails written back.  The model below runs
+# that algorithm over small tiles, with the tiles' steps interleaved in
+# a random order under a bound on the tiles in flight, status words
+# tagged with the call's sequence number and kept across calls, and
+# checks that no tail is written before its head was read.  The kernel
+# itself cannot run here (no nvcc); this finds a fault in the algorithm
+# before the card does.
+
+_ST_A, _ST_P = 1, 2
+
+
+def _model_scan(kind, fields, slots, values, tile_rows, resident, work, rng):
+    """One kernel call, modelled: updates ``fields`` in place and
+    returns the output columns.  ``work`` carries the sequence number
+    and the status words from call to call, as the workspace does."""
+    names = tuple(kind.fields)
+    capacity = fields[names[0]].shape[0]
+    n = slots.shape[0]
+    ntiles = -(-n // tile_rows)
+    tag = work["calls"] + 1
+    status = work["status"]  # tile -> (tag, state, element)
+    ident_cols = tuple(torch.full((1,), init, dtype=dt) for init, dt in kind.fields.values())
+    ident = (False, ident_cols, ident_cols)
+
+    def combine(a, b):
+        if b[0]:
+            return b
+        return (a[0], kind.merge(a[1], b[1]), a[2])
+
+    outs = None
+    ctx = {}
+    read = set()
+
+    def load(t):
+        lo, hi = t * tile_rows, min(n, (t + 1) * tile_rows)
+        s = slots[lo:hi]
+        prev = torch.cat([slots[lo - 1 : lo] if lo > 0 else torch.tensor([-1], dtype=s.dtype), s[:-1]])
+        nxt = torch.cat([s[1:], slots[hi : hi + 1] if hi < n else torch.tensor([-1], dtype=s.dtype)])
+        head, tail = s != prev, s != nxt
+        valid = (s >= 0) & (s < capacity)
+        take = head & valid
+        idx = s.long().clamp(0, capacity - 1)
+        carry = tuple(torch.where(take, fields[nm][idx], i) for nm, i in zip(names, ident_cols))
+        read.update(s[take].tolist())
+        x = kind.lift(values[lo:hi])
+        incl = port_scan._segmented_inclusive(kind.merge, head, x)
+        flag = bool(head.any())
+        last = int(torch.nonzero(head).max()) if flag else 0
+        total = (flag, tuple(c[-1:] for c in incl), tuple(c[last : last + 1] for c in carry) if flag else ident_cols)
+        ctx[t] = (lo, hi, s, head, tail, valid, carry, incl, total)
+        if t == 0 or flag:
+            status[t] = (tag, _ST_P, total)
+        else:
+            status[t] = (tag, _ST_A, total)
+
+    def look_back(t):
+        """The tile's exclusive prefix, or None while a status it needs
+        is not yet published in this call."""
+        acc = ident
+        for k in range(t - 1, -1, -1):
+            word = status.get(k)
+            if word is None or word[0] != tag:
+                return None
+            acc = combine(word[2], acc)
+            if word[1] == _ST_P:
+                return acc
+        msg = "the look-back passed tile 0"
+        raise AssertionError(msg)
+
+    def rows(t, excl):
+        nonlocal outs
+        lo, hi, s, head, tail, valid, carry, incl, _total = ctx[t]
+        pos = torch.arange(hi - lo)
+        head_pos = torch.cummax(torch.where(head, pos, -1), 0).values
+        seen = head_pos >= 0
+        hp = head_pos.clamp(min=0)
+        c = tuple(torch.where(seen, col[hp], e) for col, e in zip(carry, excl[2]))
+        st_in = tuple(
+            torch.where(seen, i, m.to(i.dtype)) for i, m in zip(incl, kind.merge(excl[1], incl))
+        )
+        st_ex = tuple(
+            torch.where(head, i, torch.cat([e, col[:-1]]))
+            for col, e, i in zip(st_in, excl[1], ident_cols)
+        )
+        pre = kind.merge(c, st_ex)
+        post = kind.merge(c, st_in)
+        got = kind.emit(pre, post, values[lo:hi])
+        if outs is None:
+            outs = tuple(torch.empty(n, dtype=o.dtype) for o in got)
+        for o, g in zip(outs, got):
+            o[lo:hi] = g
+        write = tail & valid
+        assert set(s[write].tolist()) <= read, "a tail was written before its head was read"
+        for nm, p in zip(names, post):
+            fields[nm][s[write].long()] = p[write].to(fields[nm].dtype)
+
+    step = {}
+    prefix = {}
+    claimed = 0
+    while len(step) < ntiles or any(v < 3 for v in step.values()):
+        live = [t for t, v in step.items() if v < 3]
+        options = ["claim"] if claimed < ntiles and len(live) < resident else []
+        for t in live:
+            if step[t] == 1:
+                found = look_back(t) if t > 0 else ident
+                if found is None:
+                    continue
+                prefix[t] = found
+            options.append(t)
+        assert options, "the look-back deadlocked"
+        pick = options[rng.randint(len(options))]
+        if pick == "claim":
+            step[claimed] = 0
+            claimed += 1
+        elif step[pick] == 0:
+            load(pick)
+            step[pick] = 1
+        elif step[pick] == 1:
+            total = ctx[pick][-1]
+            if pick > 0 and not total[0]:
+                status[pick] = (tag, _ST_P, combine(prefix[pick], total))
+            step[pick] = 2
+        else:
+            rows(pick, prefix[pick])
+            step[pick] = 3
+    work["calls"] = tag
+    return outs
+
+
+#: name -> (rows, keys, capacity): the three key layouts of
+#: ``SCAN_LAYOUTS`` in ``test_torch_kernel_cuda.py`` at 1,536 rows
+#: (segments of about 128 rows, one key, mostly one-row segments); the
+#: random tile sizes leave a ragged last tile.
+MODEL_LAYOUTS = {
+    "many_keys": (1536, 12, 64),
+    "one_key": (1536, 1, 16),
+    "one_row_segments": (1536, 1536, 4096),
+}
+MODEL_KINDS = {
+    "welford": lambda: port_scan.WelfordZScore(3.0),
+    "ema": lambda: port_scan.Ema(0.3),
+    "ema_alpha1": lambda: port_scan.Ema(1.0),
+    "ema_tiny": lambda: port_scan.Ema(1e-8),
+    "extrema_nan": lambda: port_scan.RunningExtrema(),
+}
+
+
+def _model_table(kind, capacity, resumed, rng):
+    fields = {name: torch.full((capacity,), init, dtype=dt) for name, (init, dt) in kind.fields.items()}
+    if resumed:
+        m = capacity - 1
+        count = torch.from_numpy(rng.randint(0, 40, m).astype(np.int32))
+        level = torch.from_numpy((rng.randn(m) * 5 + 20).astype(np.float32))
+        if kind.kernel == "welford":
+            fields["count"][:m] = count
+            fields["mean"][:m] = level
+            fields["m2"][:m] = torch.from_numpy((rng.rand(m) * 30).astype(np.float32)) * (count - 1).clamp(min=0)
+        elif kind.kernel == "ema":
+            fields["count"][:m] = count
+            fields["s"][:m] = level * (1 - (1 - kind.alpha) ** count.double()).float()
+        else:
+            fields["mn"][:m] = level
+            fields["mx"][:m] = level + torch.from_numpy((rng.rand(m) * 10).astype(np.float32))
+    return fields
+
+
+def _model_close(got, want, rtol, what):
+    err = (got.double() - want.double()).abs() / want.double().abs().clamp(min=1.0)
+    assert float(err.max()) <= rtol, f"{what}: error {float(err.max())}"
+
+
+def _model_same(got, want, what):
+    if got.is_floating_point():
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan), f"{what}: NaN in other places"
+        got, want = got[~nan], want[~nan]
+    assert torch.equal(got, want), f"{what}: {int((got != want).sum())} differ"
+
+
+@pytest.mark.parametrize("resumed", [False, True], ids=["fresh", "resumed"])
+@pytest.mark.parametrize("layout", sorted(MODEL_LAYOUTS))
+@pytest.mark.parametrize("name", sorted(MODEL_KINDS))
+def test_single_pass_model_matches_plain(name, layout, resumed):
+    """The kernel's algorithm, modelled over tiles of 4 to 64 rows
+    visited in a random interleaving, against ``kind.plain``: two calls
+    back to back (the second over fewer rows, with the first call's
+    stale status words still in place), counts and extrema exact (NaN
+    in the same places), other float32 state within 1e-5 relative, z
+    within 1e-4 of max(1, |z|), the EMA within 1e-4 relative."""
+    kind = MODEL_KINDS[name]()
+    n, n_keys, capacity = MODEL_LAYOUTS[layout]
+    rng = np.random.RandomState(sorted(MODEL_KINDS).index(name) * 10 + len(layout) + resumed)
+    fields = _model_table(kind, capacity, resumed, rng)
+    work = {"calls": 0, "status": {}}
+    slot_of = rng.permutation(capacity - 1)[:n_keys].astype(np.int32)
+    for rows in (n, n // 3 + 5):
+        keys = np.sort(rng.randint(0, n_keys, rows))
+        vals = (rng.randn(rows) * 5 + 20).astype(np.float32)
+        if name == "extrema_nan":
+            vals[rng.rand(rows) < 0.01] = np.nan
+        slots = torch.from_numpy(slot_of[keys])
+        values = torch.from_numpy(vals)
+        want = {k: v.clone() for k, v in fields.items()}
+        want_outs, _ = kind.plain(want, slots, values)
+        tile = int(rng.randint(4, 65))
+        got_outs = _model_scan(kind, fields, slots, values, tile, int(rng.randint(1, 5)), work, rng)
+        real = slice(0, capacity - 1)  # the plain versions write non-tail rows to scratch
+        for fname, (_init, dt) in kind.fields.items():
+            g, w = fields[fname][real], want[fname][real]
+            if dt == torch.int32 or kind.kernel == "extrema":
+                _model_same(g, w, fname)
+            else:
+                _model_close(g, w, 1e-5, fname)
+        for i, (g, w) in enumerate(zip(got_outs, want_outs)):
+            if kind.kernel == "extrema":
+                _model_same(g, w, f"out{i}")
+            else:
+                _model_close(g, w, 1e-4, "z" if kind.kernel == "welford" else "ema")
+    if name == "extrema_nan":
+        assert bool(torch.isnan(fields["mn"]).any())
+
+
 # -- whole flows -------------------------------------------------------------
 
 
