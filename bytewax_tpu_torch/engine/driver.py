@@ -51,7 +51,7 @@ from bytewax_tpu_torch.errors import (
     note_context,
 )
 from bytewax_tpu_torch.engine.flatten import Plan, flatten
-from bytewax_tpu_torch.engine.recovery_store import RecoveryStore, ResumeFrom
+from bytewax_tpu_torch.engine.recovery_store import RecoveryStore, ResumeFrom, loads
 from bytewax_tpu_torch.engine.residency import ResidentKeyState, maybe_wrap
 from bytewax_tpu_torch.engine.xla import AccelSpec, DeviceAggState, NonNumericValues
 from bytewax_tpu_torch.inputs import (
@@ -1592,14 +1592,18 @@ class _StatefulBatchRt(_OpRt):
             _flight.note_pipeline_depth(op.step_id, self._pipe.depth)
         # Stream resumed states in store pages (never materialize the
         # whole keyed state as one dict — reference pages its resume
-        # reads too, src/recovery.rs:817-882).  Device agg state
-        # installs per page with one scatter per field (a per-key
-        # load is a jax dispatch per key).  Eagerly rebuilding host
-        # logics per resumed key keeps EOF-driven emission
-        # (fold_final etc.) firing even with no new input (reference:
-        # src/operators.rs:976-1006).
+        # reads too, src/recovery.rs:817-882).  Device state installs
+        # per page with one indexed write per field (a per-key load is
+        # a device write per key); window state too, a page's open
+        # windows at once (the JAX package writes them one window at a
+        # time).  Eagerly rebuilding host logics per resumed key keeps
+        # EOF-driven emission (fold_final etc.) firing even with no new
+        # input (reference: src/operators.rs:976-1006).
         page: List[Tuple[str, Any]] = []
-        pager = self.agg if self.agg is not None else self.sagg
+        pager = next(
+            (s for s in (self.agg, self.sagg, self.wagg) if s is not None),
+            None,
+        )
         if type(spec).__name__ != "InferAccelSpec":
             # Infer steps skip the per-key resume walk: their one
             # broadcast-state row restores route-agnostically in
@@ -1615,8 +1619,6 @@ class _StatefulBatchRt(_OpRt):
                     if len(page) >= 4096:
                         pager.load_many(page)
                         page = []
-                elif self.wagg is not None:
-                    self.wagg.load(key, state)
                 else:
                     logic = self._build(state)
                     self.logics[key] = logic
@@ -3486,7 +3488,7 @@ class _Driver:
 
     def resume_state(self, step_id: str, state_key: str) -> Optional[Any]:
         ser = self._loads.get((step_id, state_key))
-        return pickle.loads(ser) if ser is not None else None
+        return loads(ser) if ser is not None else None
 
     def iter_resume_states(self, step_id: str):
         """Stream ``(key, state)`` resume pairs for a stateful step in
@@ -3504,7 +3506,7 @@ class _Driver:
             step_ids=[step_id],
             routes=list(range(self.local_lo, self.local_hi)),
         ):
-            yield key, pickle.loads(ser)
+            yield key, loads(ser)
 
     def route(self, stream_id: str, entry: Entry) -> None:
         for ci, port in self.plan.consumers.get(stream_id, []):

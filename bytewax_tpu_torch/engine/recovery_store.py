@@ -4,8 +4,10 @@ Store format parity with the reference engine
 (upstream bytewax ``src/recovery.rs:456-531`` schema,
 ``:1180-1275`` resume math, ``:948-989`` GC); implementation is our
 own, host-side Python over :mod:`sqlite3`.  Device state arrives here
-already materialized (the driver calls ``jax.device_get`` on sharded
-state pytrees at epoch close before serializing).
+already materialized (the driver reads it back from the device at the
+epoch close before serializing).  Rows are read back through
+:func:`loads`, which also resumes a store that the JAX package
+``bytewax_tpu`` wrote, without importing it.
 
 Tables per ``part-{i}.sqlite3``:
 
@@ -31,7 +33,9 @@ Tables per ``part-{i}.sqlite3``:
   :func:`rescale_snaps_rows` routine.
 """
 
+import io
 import os
+import pickle
 import sqlite3
 import zlib
 from pathlib import Path
@@ -48,6 +52,7 @@ __all__ = [
     "WorkerCountMismatchError",
     "ensure_route_column",
     "init_db_dir",
+    "loads",
     "rescale_snaps_rows",
     "route_of",
 ]
@@ -141,6 +146,36 @@ class WorkerCountMismatchError(ValueError):
         super().__init__(msg)
         self.stored_counts = tuple(stored)
         self.actual_count = actual_count
+
+
+#: The module prefix of the JAX package this package was ported from.
+#: Its store rows pickle its own classes (window snapshots, clock and
+#: windower states); :func:`loads` reads them as this package's.
+_REFERENCE_PACKAGE = "bytewax_tpu"
+_REFERENCE_MARK = _REFERENCE_PACKAGE.encode()
+_PORT_PACKAGE = __name__.split(".", 1)[0]
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Resolve a class of the JAX package to the class of the same
+    name here, and every other class unchanged."""
+
+    def find_class(self, module: str, name: str):
+        if module == _REFERENCE_PACKAGE or module.startswith(
+            _REFERENCE_PACKAGE + "."
+        ):
+            module = _PORT_PACKAGE + module[len(_REFERENCE_PACKAGE) :]
+        return super().find_class(module, name)
+
+
+def loads(ser: bytes):
+    """Unpickle one ``snaps`` row (or a spilled state) written by this
+    package or by the JAX package.  A row that names neither package
+    (plain tuples and numbers, the common case) skips the subclass,
+    which costs several times ``pickle.loads`` a row."""
+    if _REFERENCE_MARK not in ser:
+        return pickle.loads(ser)
+    return _PortUnpickler(io.BytesIO(ser)).load()
 
 
 def _connect(path: Path) -> sqlite3.Connection:
@@ -247,32 +282,46 @@ def rescale_snaps_rows(
     left by a crash mid-migration never compare equal to the new
     route, so they are always rewritten (re-running the migration is
     idempotent in both modes)."""
+    # The primary key leads with step_id, so paging over state keys
+    # and updating by state key would scan the whole table each page
+    # and each key (quadratic: 4.3 s for 6,671 keys of one step on the
+    # H100's host).  A key index, built for the migration and dropped
+    # after it (inside the caller's transaction, where it has one),
+    # makes both a range search.  The JAX package migrates without it.
+    con.execute(f"CREATE INDEX IF NOT EXISTS {_KEY_INDEX} ON snaps (state_key)")
     migrated = 0
     last = ""
-    while True:
-        # MIN/MAX expose whether every row of a key already carries
-        # one (the new) route; anything mixed or stale rewrites.
-        rows = con.execute(
-            "SELECT state_key, MIN(route), MAX(route) FROM snaps "
-            "WHERE state_key > ? GROUP BY state_key "
-            "ORDER BY state_key LIMIT ?",
-            (last, page_size),
-        ).fetchall()
-        if not rows:
-            return migrated
-        last = rows[-1][0]
-        updates = []
-        for key, route_lo, route_hi in rows:
-            new_route = route_of(key, new_worker_count)
-            if partial and route_lo == route_hi == new_route:
-                continue  # home lane unchanged: leave the rows alone
-            updates.append((new_route, key))
-        if updates:
-            con.executemany(
-                "UPDATE snaps SET route = ? WHERE state_key = ?",
-                updates,
-            )
-        migrated += len(updates)
+    try:
+        while True:
+            # MIN/MAX expose whether every row of a key already carries
+            # one (the new) route; anything mixed or stale rewrites.
+            rows = con.execute(
+                "SELECT state_key, MIN(route), MAX(route) FROM snaps "
+                "WHERE state_key > ? GROUP BY state_key "
+                "ORDER BY state_key LIMIT ?",
+                (last, page_size),
+            ).fetchall()
+            if not rows:
+                return migrated
+            last = rows[-1][0]
+            updates = []
+            for key, route_lo, route_hi in rows:
+                new_route = route_of(key, new_worker_count)
+                if partial and route_lo == route_hi == new_route:
+                    continue  # home lane unchanged: leave the rows alone
+                updates.append((new_route, key))
+            if updates:
+                con.executemany(
+                    "UPDATE snaps SET route = ? WHERE state_key = ?",
+                    updates,
+                )
+            migrated += len(updates)
+    finally:
+        con.execute(f"DROP INDEX IF EXISTS {_KEY_INDEX}")
+
+
+#: :func:`rescale_snaps_rows`' temporary index on ``snaps(state_key)``.
+_KEY_INDEX = "snaps_rescale_by_key"
 
 
 class RecoveryStore:
@@ -451,7 +500,12 @@ class RecoveryStore:
         conds = ["epoch < ?", "(step_id, state_key) > (?, ?)"]
         filt = ""
         if step_ids is not None:
-            filt = "step_id IN (%s)" % ",".join("?" * len(step_ids))
+            # The unary plus keeps SQLite from searching the index by
+            # ``step_id`` alone, which restarts each page at the step's
+            # first row (quadratic: 93 s for 662,887 keys of one step
+            # on the H100's host); the keyset range above then leads.
+            # The JAX package filters with a plain ``step_id IN``.
+            filt = "+step_id IN (%s)" % ",".join("?" * len(step_ids))
             conds.append(filt)
         if routes is not None:
             conds.append(

@@ -266,7 +266,9 @@ class SpillStore:
                 f"{self.step_id!r} is missing from {self._path}"
             )
             raise KeyError(msg)
-        return pickle.loads(row[0])
+        from bytewax_tpu_torch.engine.recovery_store import loads
+
+        return loads(row[0])
 
     def delete(self, key: str) -> None:
         self._con.execute(

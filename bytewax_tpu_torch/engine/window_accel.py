@@ -793,17 +793,39 @@ class DeviceWindowAggState:
             np.full(len(queue), kid, dtype=np.int64), ts_q, vals_q
         )
 
-    def load(self, key: str, snap: Any) -> None:
-        """Resume from a host-tier ``_WindowSnapshot``."""
-        kids = self._key_ids_for([key])
-        kid = int(kids[0])
+    def _install(self, key: str, kid: int, snap: Any) -> List[Tuple[str, Any]]:
+        """Restore one key's clock and open windows from its
+        ``_WindowSnapshot``; returns its windows' ``(slot key, state)``
+        pairs for the fold table."""
         self._load_clock(kid, snap)
         for wid, meta in snap.windower_state.opened.items():
             self.open_close_us[(kid, wid)] = _to_us(meta.close_time)
+        return [
+            (f"{key}\x00{wid}", state)
+            for wid, state in snap.logic_states.items()
+        ]
+
+    def load_many(self, items: List[Tuple[str, Any]]) -> None:
+        """Resume a page of host-tier ``(key, _WindowSnapshot)`` pairs.
+        The clocks and open-window maps restore per key; every window's
+        accumulator then goes into the fold table with one
+        ``load_many`` (one indexed write per field for the page; the
+        JAX package writes each window on its own), and queued values
+        replay last."""
+        if not items:
+            return
+        kids = self._key_ids_for([key for key, _snap in items]).tolist()
+        states = []
+        for (key, snap), kid in zip(items, kids):
+            states.extend(self._install(key, kid, snap))
         self._open_cache = None
-        for wid, state in snap.logic_states.items():
-            self.agg.load(f"{key}\x00{wid}", state)
-        self._replay_queue(kid, snap)
+        self.agg.load_many(states)
+        for (_key, snap), kid in zip(items, kids):
+            self._replay_queue(kid, snap)
+
+    def load(self, key: str, snap: Any) -> None:
+        """Resume one key from a host-tier ``_WindowSnapshot``."""
+        self.load_many([(key, snap)])
 
     # -- residency (engine/residency.py) ------------------------------------
     #
@@ -837,8 +859,7 @@ class DeviceWindowAggState:
     def inject_keys(self, items: List[Tuple[str, Any]]) -> None:
         """Reinstate previously-extracted keys from their host-tier
         ``_WindowSnapshot``s."""
-        for key, snap in items:
-            self.load(key, snap)
+        self.load_many(items)
 
 
 class DeviceSessionAggState(DeviceWindowAggState):
@@ -1139,9 +1160,10 @@ class DeviceSessionAggState(DeviceWindowAggState):
             )
         return out
 
-    def load(self, key: str, snap: Any) -> None:
-        """Resume from a host-tier session ``_WindowSnapshot``."""
-        kid = int(self._key_ids_for([key])[0])
+    def _install(self, key: str, kid: int, snap: Any) -> List[Tuple[str, Any]]:
+        """Restore one key's clock and sessions from its session
+        ``_WindowSnapshot``; returns its sessions' ``(slot key,
+        state)`` pairs for the fold table."""
         self._load_clock(kid, snap)
         st = snap.windower_state
         self.next_wid[kid] = st.next_id
@@ -1155,12 +1177,12 @@ class DeviceSessionAggState(DeviceWindowAggState):
             ]
             self.session_slots[(kid, wid)] = []
             self.open_close_us[(kid, wid)] = _to_us(meta.close_time) + gap
-        self._open_cache = None
         # A snapshot taken between a windower merge and the logic
         # merge has the sessions dict merged but logic states still
         # split per pre-merge id; resolve each state to its surviving
         # session (chasing chained merges).
         into = dict(st.merge_queue)
+        states = []
         for wid, state in snap.logic_states.items():
             target = wid
             seen = set()
@@ -1171,9 +1193,9 @@ class DeviceSessionAggState(DeviceWindowAggState):
                 continue
             slot_key = f"{key}\x00{target}\x00{self._slot_seq}"
             self._slot_seq += 1
-            self.agg.load(slot_key, state)
+            states.append((slot_key, state))
             self.session_slots[(kid, target)].append(slot_key)
-        self._replay_queue(kid, snap)
+        return states
 
     def extract_keys(self, keys: List[str]) -> List[Tuple[str, Any]]:
         """Session variant of the residency extract: open sessions

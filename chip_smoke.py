@@ -52,13 +52,30 @@ Phases, each of which raises on any failure:
    against a float64 numpy oracle (values exact and in order per key,
    z within 1e-4 of max(1, |z|), flags equal, EMA within 1e-4
    relative, extrema exact);
-9. report  — one ``{"kernels": [...]}`` line.
+9. recovery — SQLite recovery stores (``init_db_dir``,
+   ``RecoveryConfig``, one epoch a batch) driven on the card, each run
+   checked against its oracle: ``brc_flow_columnar`` over 16·2^20 rows
+   at 10,000 stations with no store, synchronous checkpoints, delta and
+   async commits (``BYTEWAX_TPU_CKPT_DELTA``/``_ASYNC``), and those
+   with a crash at the seal of epoch 8 (``BYTEWAX_TPU_FAULTS``) and a
+   resume; ``anomaly_flow`` at 2^20 sensors over 2 batches,
+   synchronous, delta and async, and those with a crash at the seal
+   of epoch 2 and a resume, exactly once through a sink with
+   ``FileSink``'s resume truncation; tumbling ``stats_window`` at
+   10,000 stations aborted after 4 of 8 batches and resumed, with the
+   window-state install timed per window and in pages; and the 1BRC
+   flow rescaled in one process from 2 lanes to 3
+   (``BYTEWAX_TPU_RESCALE=1``) and to 1.  Each line carries rows/s,
+   the ledger phases ``snapshot``, ``commit`` and ``snapshot_lane``,
+   store rows per close, the store's size, the resume's read and
+   install seconds, the migration's seconds and the launches;
+10. report — one ``{"kernels": [...]}`` line.
 
 Phases 5 and 6 hold their output against a float64 numpy oracle of
 the same semantics: counts, min and max exactly, means within 1e-5 of
 the rows' mean absolute value.  Every phase that drives a flow resets
 both kernels' launch counts just before ``run_main`` and fails if the
-run launched its kernel no time (phase 8 also fails on any step
+run launched its kernel no time (phases 8 and 9 also fail on any step
 demoted to the host tier).
 
 Every result line is JSON and carries the card's name and power
@@ -683,11 +700,12 @@ def _recording_states(timed=()):
     return states, timers, undo
 
 
-def _run_flow(flow) -> dict:
-    """``run_main`` with every kernel count set to 0 just before it;
-    returns wall seconds, each kernel's launches (``launches`` for the
-    segment fold, ``scan_launches`` for the segmented scan) and the
-    engine's phase seconds."""
+def _run_flow(flow, entry=None, expect=(), **kwargs) -> dict:
+    """``run_main`` (or ``entry``) with every kernel count set to 0
+    just before it; returns wall seconds, each kernel's launches
+    (``launches`` for the segment fold, ``scan_launches`` for the
+    segmented scan) and the engine's phase seconds.  An exception of a
+    type in ``expect`` ends the run; its type's name is ``raised``."""
     import torch
 
     from bytewax_tpu_torch.engine import flight
@@ -699,11 +717,16 @@ def _run_flow(flow) -> dict:
     torch.cuda.synchronize()
     fold_kernel.launches = 0
     scan_kernel.launches = 0
+    raised = None
     t0 = time.perf_counter()
-    run_main(flow)
+    try:
+        (entry or run_main)(flow, **kwargs)
+    except expect as ex:
+        raised = type(ex).__name__
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return {
+        "raised": raised,
         "seconds": seconds,
         "launches": fold_kernel.launches,
         "scan_launches": scan_kernel.launches,
@@ -759,6 +782,42 @@ def _reference(batches, n_stations: int):
     }
 
 
+def _check_brc(out, want: dict, where: str) -> float:
+    """1BRC output against :func:`_reference`: every station once,
+    min and max exact after rounding, the rounded mean within 0.1;
+    returns the worst mean error."""
+    got = dict(out)
+    if len(got) != len(out) or set(got) != set(want):
+        msg = f"{where}: {len(out)} rows of {len(got)} stations out, {len(want)} expected"
+        raise AssertionError(msg)
+    worst_mean = 0.0
+    for station, (mn, mean, mx) in want.items():
+        gmn, gmean, gmx = got[station]
+        if gmn != round(mn, 1) or gmx != round(mx, 1):
+            msg = f"{where}, {station}: min/max {gmn}/{gmx} != {round(mn, 1)}/{round(mx, 1)}"
+            raise AssertionError(msg)
+        worst_mean = max(worst_mean, abs(gmean - mean))
+    if worst_mean > 0.1:
+        msg = f"{where}: rounded mean off by {worst_mean}"
+        raise AssertionError(msg)
+    return worst_mean
+
+
+def _check_same_brc(out, other, where: str) -> None:
+    """Two 1BRC outputs of the same rows: the same stations, min and
+    max, and rounded means at most one rounding step apart (float32
+    sums on the card depend on the order the rows fold in)."""
+    got, want = dict(out), dict(other)
+    if set(got) != set(want):
+        msg = f"{where}: {len(got)} stations, {len(want)} in the run with no store"
+        raise AssertionError(msg)
+    for station, (mn, mean, mx) in want.items():
+        gmn, gmean, gmx = got[station]
+        if (gmn, gmx) != (mn, mx) or abs(gmean - mean) > 0.1 + 1e-6:
+            msg = f"{where}, {station}: {got[station]} against {want[station]} with no store"
+            raise AssertionError(msg)
+
+
 def _demotions() -> float:
     from bytewax_tpu_torch._metrics import step_demotion_count
 
@@ -789,20 +848,7 @@ def phase_main(card: dict, rows: int, batch_rows: int, n_stations: int, times: d
     finally:
         undo()
     seconds, launches = run["seconds"], run["launches"]
-    got = dict(out)
-    if set(got) != set(want):
-        msg = f"stations differ: {len(got)} out, {len(want)} expected"
-        raise AssertionError(msg)
-    worst_mean = 0.0
-    for station, (mn, mean, mx) in want.items():
-        gmn, gmean, gmx = got[station]
-        if gmn != round(mn, 1) or gmx != round(mx, 1):
-            msg = f"{station}: min/max {gmn}/{gmx} != {round(mn, 1)}/{round(mx, 1)}"
-            raise AssertionError(msg)
-        worst_mean = max(worst_mean, abs(gmean - mean))
-    if worst_mean > 0.1:
-        msg = f"rounded mean off by {worst_mean}"
-        raise AssertionError(msg)
+    worst_mean = _check_brc(out, want, "brc_flow_columnar")
     if launches < len(batches):
         msg = f"{launches} kernel launches for {len(batches)} batches"
         raise AssertionError(msg)
@@ -2043,6 +2089,578 @@ def phase_anomaly(card: dict, n: int, n_keys: int, times: dict) -> dict:
     return launches
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+#: 1BRC batches of the recovery runs, and the epoch whose seal crashes.
+RECOVERY_BRC_BATCHES = 16
+RECOVERY_BRC_CRASH_EPOCH = 8
+#: ``anomaly_flow`` batches at 2^20 sensors (cut from 4: a synchronous
+#: run of 4 took 89 s on the H100, most of it writing ~663,000 store
+#: rows a close), and the epoch whose seal crashes.
+RECOVERY_ANOMALY_BATCHES = 2
+RECOVERY_ANOMALY_CRASH_EPOCH = 2
+#: Tumbling-window batches, and the batch before which the run aborts.
+RECOVERY_WINDOW_BATCHES = 8
+RECOVERY_WINDOW_ABORT = 4
+#: The rescale runs: (lanes, the batch before which each run aborts);
+#: the last run goes to the end of the 16 batches.
+RESCALE_RUNS = ((2, 8), (3, 12), (1, None))
+#: Keys a page of resumed state holds (the driver's resume pager).
+RESUME_PAGE = 4096
+#: The knobs of each checkpoint mode.
+CKPT_MODES = {
+    "sync": {},
+    "delta_async": {"BYTEWAX_TPU_CKPT_DELTA": "1", "BYTEWAX_TPU_CKPT_ASYNC": "1"},
+}
+
+
+class _Knobs:
+    """Set environment knobs for a ``with`` block (and clear the fault
+    injector's plan on the way in and out)."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        from bytewax_tpu_torch.engine import faults
+
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        faults.reset()
+        return self
+
+    def __exit__(self, *exc):
+        from bytewax_tpu_torch.engine import faults
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.reset()
+        return False
+
+
+def _batch_source(batches, aborts=()):
+    """A resumable source of pre-built batches: one partition whose
+    snapshot is the index of the next batch.  Before each index in
+    ``aborts`` it aborts the execution once (the engine's
+    ``AbortExecution``, as ``TestingSource.ABORT()`` raises it)."""
+    from bytewax_tpu_torch.inputs import (
+        AbortExecution,
+        FixedPartitionedSource,
+        StatefulSourcePartition,
+    )
+
+    pending = set(aborts)
+
+    class _Part(StatefulSourcePartition):
+        def __init__(self, at):
+            self.at = at
+
+        def next_batch(self):
+            if self.at in pending:
+                pending.discard(self.at)
+                raise AbortExecution()
+            if self.at >= len(batches):
+                raise StopIteration()
+            self.at += 1
+            return batches[self.at - 1]
+
+        def snapshot(self):
+            return self.at
+
+    class _Source(FixedPartitionedSource):
+        def list_parts(self):
+            return ["batches"]
+
+        def build_part(self, step_id, for_part, resume_state):
+            return _Part(resume_state or 0)
+
+    return _Source()
+
+
+def _truncating_sink(rows: list):
+    """A one-partition sink into ``rows`` with ``FileSink``'s resume
+    rule: its snapshot is the number of rows written, and a resumed
+    execution first cuts ``rows`` back to that number, so rows written
+    after the last durable epoch are replaced by the replay, not
+    doubled.  Items are ``(key, value)``; ``value`` is kept."""
+    from bytewax_tpu_torch.outputs import FixedPartitionedSink, StatefulSinkPartition
+
+    cut = []
+
+    class _Part(StatefulSinkPartition):
+        def write_batch(self, values):
+            rows.extend(values)
+
+        def snapshot(self):
+            return len(rows)
+
+    class _Sink(FixedPartitionedSink):
+        def list_parts(self):
+            return ["rows"]
+
+        def build_part(self, step_id, for_part, resume_state):
+            keep = resume_state or 0
+            cut.append(len(rows) - keep)
+            del rows[keep:]
+            return _Part()
+
+    sink = _Sink()
+    sink.cut = cut
+    return sink
+
+
+class _TimedIter:
+    """Wrap a generator method to count the items it yields and the
+    seconds spent producing them (the consumer's time left out)."""
+
+    def __init__(self, obj, name: str):
+        self.items = 0
+        self.seconds = 0.0
+        inner = getattr(obj, name)
+
+        def wrapped(*args, **kwargs):
+            it = inner(*args, **kwargs)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    self.seconds += time.perf_counter() - t0
+                    return
+                self.seconds += time.perf_counter() - t0
+                self.items += 1
+                yield item
+
+        setattr(obj, name, wrapped)
+
+
+class _StoreProbe:
+    """For one run: the store rows each epoch close writes, the resume's
+    reads (store reads; store reads with unpickle) and installs
+    (``load_many`` of each device state class), and the rescale
+    migration, by wrapping those functions for a ``with`` block."""
+
+    def __init__(self):
+        from bytewax_tpu_torch.engine import driver, scan_accel, window_accel, xla
+        from bytewax_tpu_torch.engine.recovery_store import RecoveryStore
+
+        self._sites = [
+            (RecoveryStore, "write_epoch"),
+            (RecoveryStore, "rescale"),
+            (RecoveryStore, "iter_snaps"),
+            (driver._Driver, "iter_resume_states"),
+            (xla.DeviceAggState, "load_many"),
+            (scan_accel.DeviceScanState, "load_many"),
+            (window_accel.DeviceWindowAggState, "load_many"),
+        ]
+        self.rows_per_close = []
+
+    def __enter__(self):
+        from bytewax_tpu_torch.engine.recovery_store import RecoveryStore
+
+        self._saved = [(obj, name, obj.__dict__[name]) for obj, name in self._sites]
+        inner = RecoveryStore.write_epoch
+        rows = self.rows_per_close
+
+        def write_epoch(store, ex_num, worker_count, epoch, snaps, *args, **kwargs):
+            rows.append(len(snaps))
+            return inner(store, ex_num, worker_count, epoch, snaps, *args, **kwargs)
+
+        RecoveryStore.write_epoch = write_epoch
+        self.rescale = _Timed(RecoveryStore, "rescale")
+        self.store_reads = _TimedIter(RecoveryStore, "iter_snaps")
+        self.resume_reads = _TimedIter(self._sites[3][0], "iter_resume_states")
+        self.installs = {
+            obj.__name__: _Timed(obj, name) for obj, name in self._sites[4:]
+        }
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig in self._saved:
+            setattr(obj, name, orig)
+        return False
+
+    def numbers(self) -> dict:
+        closes = self.rows_per_close
+        return {
+            "closes_written": len(closes),
+            "rows_written": sum(closes),
+            "rows_per_close_mean": sum(closes) / len(closes) if closes else 0,
+            "rows_per_close_max": max(closes, default=0),
+            "resume_rows_read": self.resume_reads.items,
+            "resume_read_s": self.store_reads.seconds,
+            "resume_read_unpickle_s": self.resume_reads.seconds,
+            "resume_install_s": {n: t.seconds for n, t in self.installs.items() if t.calls},
+            "resume_install_calls": {n: t.calls for n, t in self.installs.items() if t.calls},
+            "rescale_migration_s": self.rescale.seconds if self.rescale.calls else None,
+        }
+
+
+def _fresh_store(root: Path, name: str) -> Path:
+    from bytewax_tpu_torch.recovery import init_db_dir
+
+    db = root / name
+    db.mkdir()
+    init_db_dir(db, 1)
+    return db
+
+
+def _recovery_run(card: dict, path: str, run: str, flow, db, knobs: dict, records: list,
+                  rows: int, entry=None, expect=(), states_of=None, kernel: str = "launches") -> dict:
+    """Run ``flow`` once against the store in ``db`` (None: no store)
+    with one epoch per batch, under ``knobs``; check that it stayed on
+    the device tier, on the card, and launched its kernel; emit its
+    ``recovery`` line and return it."""
+    from datetime import timedelta
+
+    from bytewax_tpu_torch.recovery import RecoveryConfig
+
+    demoted_before = _demotions()
+    kwargs = {"epoch_interval": timedelta(0)}
+    if db is not None:
+        kwargs["recovery_config"] = RecoveryConfig(str(db))
+    states, timers, undo = (states_of or _recording_states)()
+    try:
+        with _Knobs(BYTEWAX_TPU_INGEST_TARGET_ROWS="0", **knobs), _StoreProbe() as probe:
+            res = _run_flow(flow, entry=entry, expect=expect, **kwargs)
+    finally:
+        undo()
+    demoted = _demotions() - demoted_before
+    if demoted:
+        msg = f"{path} {run}: {demoted} steps demoted to the host tier"
+        raise AssertionError(msg)
+    if not states or any(s.device.type != DEV for s in states):
+        msg = f"{path} {run}: device state not on cuda: {[s.device for s in states]}"
+        raise AssertionError(msg)
+    if res[kernel] <= 0:
+        msg = f"{path} {run}: its kernel was launched no time"
+        raise AssertionError(msg)
+    line = {
+        "path": path,
+        "run": run,
+        "knobs": knobs,
+        "raised": res["raised"],
+        "rows": rows,
+        "seconds": res["seconds"],
+        "rows_per_s": rows / res["seconds"],
+        "fold_launches": res["launches"],
+        "scan_launches": res["scan_launches"],
+        "device_states": len(states),
+        "phase_seconds": res["phase_seconds"],
+        "store_bytes": None if db is None else sum(p.stat().st_size for p in db.iterdir()),
+        **probe.numbers(),
+    }
+    _emit(card, "recovery", **line)
+    records.append(line)
+    line.update(states=states, timers=timers)
+    return line
+
+
+def _recovery_brc(card: dict, root: Path, n: int, n_stations: int, launches: dict) -> list:
+    """Phase 9.1: 1BRC columnar four ways, and 9.4: the rescale runs,
+    over the same batches."""
+    from bytewax_tpu_torch.engine.faults import InjectedCrash
+    from bytewax_tpu_torch.models.brc import brc_flow_columnar, generate_batches
+    from bytewax_tpu_torch.testing import TestingSink, cluster_main
+
+    batches = generate_batches(n * RECOVERY_BRC_BATCHES, n, n_stations, seed=40)
+    want = _reference(batches, n_stations)
+    rows = n * RECOVERY_BRC_BATCHES
+    records = []
+    runs = (
+        ("no_store", None, {}),
+        ("sync", "sync", {}),
+        ("delta_async", "delta_async", {}),
+        ("delta_async_crash", "delta_async",
+         {"BYTEWAX_TPU_FAULTS": f"snapshot_seal:crash:{RECOVERY_BRC_CRASH_EPOCH}:x1"}),
+    )
+    for run, mode, extra in runs:
+        db = None if mode is None else _fresh_store(root, f"brc_{run}")
+        knobs = {**CKPT_MODES.get(mode, {}), **extra}
+        out = []
+        flow = brc_flow_columnar(_batch_source(batches), TestingSink(out))
+        line = _recovery_run(card, "brc", run, flow, db, knobs, records, rows, expect=(InjectedCrash,))
+        launches["brc"] = launches.get("brc", 0) + line["fold_launches"]
+        if "BYTEWAX_TPU_FAULTS" in knobs:
+            if line["raised"] != "InjectedCrash" or out:
+                msg = f"brc {run}: the seal of epoch {RECOVERY_BRC_CRASH_EPOCH} did not crash the run"
+                raise AssertionError(msg)
+            flow = brc_flow_columnar(_batch_source(batches), TestingSink(out))
+            line = _recovery_run(card, "brc", "delta_async_resume", flow, db, CKPT_MODES[mode], records, rows)
+            launches["brc"] += line["fold_launches"]
+        line["max_abs_mean_err"] = _check_brc(out, want, f"brc {line['run']}")
+        if run == "no_store":
+            uninterrupted = list(out)
+        else:
+            _check_same_brc(out, uninterrupted, f"brc {line['run']}")
+
+    # 9.4: 2 lanes, then 3 (rescaled), then 1 (rescaled), one store.
+    db = _fresh_store(root, "rescale")
+    source = _batch_source(batches, aborts=[at for _lanes, at in RESCALE_RUNS if at])
+    out = []
+    done = 0
+    for i, (lanes, at) in enumerate(RESCALE_RUNS):
+        flow = brc_flow_columnar(source, TestingSink(out))
+        entry = None
+        if lanes > 1:
+            def entry(f, lanes=lanes, **kw):
+                return cluster_main(f, [], 0, worker_count_per_proc=lanes, **kw)
+        timed = ("update_batch",)
+        line = _recovery_run(
+            card, "rescale", f"lanes_{lanes}", flow, db,
+            {"BYTEWAX_TPU_RESCALE": "1"} if i else {}, records,
+            n * ((at or RECOVERY_BRC_BATCHES) - done), entry=entry,
+            states_of=lambda: _recording_states(timed=timed),
+        )
+        start, done = done, at or RECOVERY_BRC_BATCHES
+        launches["rescale"] = launches.get("rescale", 0) + line["fold_launches"]
+        # The lanes of one process share the step's one slot table on
+        # the card (as in the JAX package): every batch folds there.
+        folds = [t["update_batch"].calls for t in line["timers"]]
+        if folds != [(at or RECOVERY_BRC_BATCHES) - start]:
+            msg = f"rescale, {lanes} lanes: folds of each slot table {folds}"
+            raise AssertionError(msg)
+        if i and line["rescale_migration_s"] is None:
+            msg = f"rescale to {lanes} lanes: the store was not migrated"
+            raise AssertionError(msg)
+        if at is not None and out:
+            msg = f"rescale, {lanes} lanes: output before the end of the input"
+            raise AssertionError(msg)
+    _check_brc(out, want, "rescale")
+    _check_same_brc(out, uninterrupted, "rescale")
+    return records
+
+
+def _recovery_anomaly(card: dict, root: Path, n: int, n_keys: int, launches: dict) -> list:
+    """Phase 9.2: ``anomaly_flow`` at 2^20 sensors, synchronous, delta
+    and async, then delta and async with a crash at a seal and a
+    resume; every run's scored rows against the oracle, exactly once."""
+    import numpy as np
+
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.engine.faults import InjectedCrash
+    from bytewax_tpu_torch.models.anomaly import anomaly_flow
+
+    data = _anomaly_data(RECOVERY_ANOMALY_BATCHES, n, n_keys, seed=41)
+    vocab = np.array([f"sensor_{i:07d}" for i in range(n_keys)])
+    index = {k: i for i, k in enumerate(vocab.tolist())}
+    batches = [
+        ArrayBatch({"key_id": i, "value": v}, key_vocab=vocab)
+        for i, v in zip(data["ids_b"], data["vals_b"])
+    ]
+    rows = n * RECOVERY_ANOMALY_BATCHES
+    every = slice(0, rows)
+    records = []
+
+    def flow_of(out):
+        sink = _truncating_sink(out)
+        return anomaly_flow(_batch_source(batches), sink, threshold=THRESHOLD, fmt=lambda kv: ("all", kv)), sink
+
+    crash = {"BYTEWAX_TPU_FAULTS": f"snapshot_seal:crash:{RECOVERY_ANOMALY_CRASH_EPOCH}:x1"}
+    for run, mode, extra in (
+        ("sync", "sync", {}),
+        ("delta_async", "delta_async", {}),
+        ("delta_async_crash", "delta_async", crash),
+    ):
+        db = _fresh_store(root, f"anomaly_{run}")
+        out = []
+        flow, _sink = flow_of(out)
+        line = _recovery_run(card, "anomaly", run, flow, db, {**CKPT_MODES[mode], **extra}, records, rows,
+                             expect=(InjectedCrash,), states_of=_scan_states, kernel="scan_launches")
+        launches["anomaly"] = launches.get("anomaly", 0) + line["scan_launches"]
+        if extra:
+            if line["raised"] != "InjectedCrash":
+                msg = f"anomaly {run}: the seal of epoch {RECOVERY_ANOMALY_CRASH_EPOCH} did not crash the run"
+                raise AssertionError(msg)
+            from bytewax_tpu_torch.engine.recovery_store import RecoveryStore
+
+            store = RecoveryStore(db)
+            try:
+                resume_epoch = store.resume_from().resume_epoch
+            finally:
+                store.close()
+            written = len(out)
+            flow, sink = flow_of(out)
+            line = _recovery_run(card, "anomaly", "delta_async_resume", flow, db, CKPT_MODES[mode], records, rows,
+                                 states_of=_scan_states, kernel="scan_launches")
+            launches["anomaly"] += line["scan_launches"]
+            line.update(rows_before_crash=written, rows_cut_on_resume=sink.cut[-1], resume_epoch=resume_epoch)
+        checked = _check_scored(f"anomaly {line['run']}", out, index, data, every, "zscore")
+        line.update(checked)
+        _emit(card, "recovery_check", path="anomaly", run=line["run"], scored_rows=len(out),
+              **{k: line[k] for k in ("rows_before_crash", "rows_cut_on_resume", "resume_epoch") if k in line},
+              **checked)
+    return records
+
+
+def _scan_states():
+    states, undo = _recording_device_states()
+    return states, None, undo
+
+
+def _per_window_install(state, key: str, snap) -> None:
+    """The window resume as it was before the install was paged: the
+    clock and open windows, then one fold-table ``load`` a window."""
+    from bytewax_tpu_torch.engine.window_accel import _to_us
+
+    kid = int(state._key_ids_for([key])[0])
+    state._load_clock(kid, snap)
+    for wid, meta in snap.windower_state.opened.items():
+        state.open_close_us[(kid, wid)] = _to_us(meta.close_time)
+    state._open_cache = None
+    for wid, acc in snap.logic_states.items():
+        state.agg.load(f"{key}\x00{wid}", acc)
+    state._replay_queue(kid, snap)
+
+
+def _recovery_windows(card: dict, root: Path, n: int, n_keys: int, launches: dict) -> list:
+    """Phase 9.3: tumbling ``stats_window`` aborted mid-input and
+    resumed; the closes against phase 6's oracle over the whole input.
+    Then the window-state install of that resume, timed per window (the
+    install before it was paged) and in pages, on a copy of the store
+    taken at the abort."""
+    import shutil
+    from datetime import datetime, timedelta, timezone
+
+    import numpy as np
+    import torch
+
+    import bytewax_tpu_torch.operators as op
+    import bytewax_tpu_torch.operators.windowing as win
+    from bytewax_tpu_torch.dataflow import Dataflow
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.engine.flatten import flatten
+    from bytewax_tpu_torch.engine.recovery_store import RecoveryStore, loads
+    from bytewax_tpu_torch.engine.window_accel import WindowAccelSpec
+    from bytewax_tpu_torch.xla import column_ts
+
+    ids_b, ts_b, deci_b = _window_data("tumbling", RECOVERY_WINDOW_BATCHES, n, n_keys, seed=42)
+    vocab = np.array([f"station_{i:05d}" for i in range(n_keys)])
+    batches = [
+        ArrayBatch({"key_id": i, "ts": t, "value": d}, key_vocab=vocab, value_scale=0.1)
+        for i, t, d in zip(ids_b, ts_b, deci_b)
+    ]
+    align = datetime.fromtimestamp(_T0_US / 1e6, tz=timezone.utc)
+    source = _batch_source(batches, aborts=[RECOVERY_WINDOW_ABORT])
+    down, late = [], []
+    cuts = {}
+
+    def flow_of():
+        clock = win.EventClock(ts_getter=column_ts, wait_for_system_duration=timedelta(seconds=WINDOW_WAIT_S))
+        windower = win.TumblingWindower(length=timedelta(minutes=1), align_to=align)
+        flow = Dataflow("recovery_windows")
+        s = op.input("inp", flow, source)
+        wo = win.stats_window("w", s, clock, windower)
+        for name, stream, rows in (("down", wo.down, down), ("late", wo.late, late)):
+            keyed = op.map(f"{name}_all", stream, lambda kv: ("all", kv))
+            sink = _truncating_sink(rows)
+            cuts[name] = sink.cut
+            op.output(name, keyed, sink)
+        return flow
+
+    db = _fresh_store(root, "windows")
+    records = []
+    flow = flow_of()
+    line = _recovery_run(card, "windows", "abort", flow, db, {}, records, n * RECOVERY_WINDOW_ABORT)
+    launches["windows"] = line["fold_launches"]
+    shutil.copytree(db, root / "windows_at_abort")
+    line = _recovery_run(card, "windows", "resume", flow_of(), db, {}, records,
+                         n * (RECOVERY_WINDOW_BATCHES - RECOVERY_WINDOW_ABORT))
+    launches["windows"] += line["fold_launches"]
+    cut = cuts["down"][-1]
+
+    ids = np.concatenate(ids_b)
+    ts = np.concatenate(ts_b)
+    vals = (np.concatenate(deci_b) * 0.1).astype(np.float32).astype(np.float64)
+    late_rows = _late_oracle(ids, ts, WINDOW_WAIT_S * 1_000_000)
+    ok = ~late_rows
+    want = _window_oracle("tumbling", ids[ok], ts[ok], vals[ok], n_keys)
+    if len(late) != int(late_rows.sum()):
+        msg = f"recovery windows: {len(late)} late events, oracle {int(late_rows.sum())}"
+        raise AssertionError(msg)
+    got = {}
+    for k, (wid, value) in down:
+        if (int(k[8:]), wid) in got:
+            msg = f"recovery windows: window {(k, wid)} closed twice"
+            raise AssertionError(msg)
+        got[(int(k[8:]), wid)] = value
+    if set(got) != set(want):
+        msg = f"recovery windows: {len(got)} windows out, {len(want)} expected"
+        raise AssertionError(msg)
+    worst = 0.0
+    for kw, (mn, mean, mx, count, mean_abs) in want.items():
+        gmn, gmean, gmx, gcount = got[kw]
+        if (gmn, gmx, gcount) != (mn, mx, count):
+            msg = f"recovery window {kw}: {got[kw]} != {want[kw]}"
+            raise AssertionError(msg)
+        worst = max(worst, _check_mean(gmean, mean, mean_abs, f"recovery window {kw}"))
+
+    # The install alone, per window and paged, from the store at the abort.
+    step = next(o for o in flatten(flow_of()).ops if isinstance(o.conf.get("_accel"), WindowAccelSpec))
+    spec = step.conf["_accel"]
+    store = RecoveryStore(root / "windows_at_abort")
+    try:
+        t0 = time.perf_counter()
+        pairs = [(k, loads(ser)) for _s, k, ser in
+                 store.iter_snaps(store.resume_from().resume_epoch, step_ids=[step.step_id])]
+        read_s = time.perf_counter() - t0
+    finally:
+        store.close()
+    timed = {}
+    states = {}
+    for how in ("per_window", "paged", "per_window", "paged"):
+        state = spec.make_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "per_window":
+            for key, snap in pairs:
+                _per_window_install(state, key, snap)
+        else:
+            for i in range(0, len(pairs), RESUME_PAGE):
+                state.load_many(pairs[i : i + RESUME_PAGE])
+        torch.cuda.synchronize()
+        timed.setdefault(how, []).append(time.perf_counter() - t0)
+        states[how] = state
+    keys = [k for k, _s in pairs]
+    a, b = states["per_window"].snapshots_for(keys), states["paged"].snapshots_for(keys)
+    for (key, sa), (_key, sb) in zip(a, b):
+        same = (sa is None) == (sb is None) and (
+            sa is None
+            or sa.clock_state == sb.clock_state
+            and {w: (m.open_time, m.close_time) for w, m in sa.windower_state.opened.items()}
+            == {w: (m.open_time, m.close_time) for w, m in sb.windower_state.opened.items()}
+            and sa.logic_states == sb.logic_states
+        )
+        if not same:
+            msg = f"recovery windows: paged install of {key!r} differs from the per-window install"
+            raise AssertionError(msg)
+    windows = sum(len(s.logic_states) for _k, s in pairs)
+    _emit(card, "recovery_check", path="windows", windows_closed=len(down), late_events=len(late),
+          max_mean_rel_err=worst, rows_cut_on_resume=cut)
+    _emit(card, "window_install", keys=len(pairs), windows=windows, read_unpickle_s=read_s,
+          per_window_s=timed["per_window"], paged_s=timed["paged"], page_keys=RESUME_PAGE,
+          snapshots_equal=True)
+    return records
+
+
+def phase_recovery(card: dict, n: int) -> dict:
+    """Phase 9: recovery stores on the card (one temporary directory,
+    removed at the end); returns each recovery path's launches of each
+    kernel."""
+    import tempfile
+
+    fold, scan = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recovery_") as tmp:
+        root = Path(tmp)
+        _recovery_brc(card, root, n, INGEST_STATIONS, fold)
+        _recovery_windows(card, root, n, WINDOW_KEYS, fold)
+        _recovery_anomaly(card, root, n, WIDE_KEYS, scan)
+    return {"fold": fold, "scan": scan}
+
+
 def main() -> int:
     if not (HERE / "bytewax_tpu_torch" / "csrc" / "segment_fold.cu").exists():
         print(
@@ -2099,6 +2717,10 @@ def main() -> int:
         launches[f"windows_{name}"] = n
     scan = phase_scan(card, SCAN_ROWS, SCAN_KEYS)
     scan_launches = phase_anomaly(card, SCAN_ROWS, SCAN_KEYS, scan["times"])
+    recovered = phase_recovery(card, BATCH_ROWS)
+    for path in ("brc", "windows", "rescale", "anomaly"):
+        launches[f"recovery_{path}"] = recovered["fold"].get(path, 0)
+        scan_launches[f"recovery_{path}"] = recovered["scan"].get(path, 0)
 
     times = shapes["brc_413"]
     scan_times = scan["times"]["welford"]

@@ -217,3 +217,62 @@ def test_multi_process_cluster_is_not_ported_yet():
     out = []
     cluster_main(_stats_flow(out), [], 0, worker_count_per_proc=2)
     assert sorted(out) == [("a", (1.0, 1.0, 1.0, 1)), ("b", (2.0, 2.0, 2.0, 1))]
+
+
+#: A windowed flow, the same in both packages (``PKG`` names one), over
+#: 120 rows of 4 stations, with an ABORT sentinel after row 60.
+WINDOW_RESUME_FLOW = """
+from datetime import datetime, timedelta, timezone
+import PKG.operators as op
+import PKG.operators.windowing as win
+from PKG import xla
+from PKG.dataflow import Dataflow
+from PKG.recovery import RecoveryConfig
+from PKG.testing import TestingSink, TestingSource, run_main
+
+align = datetime(2022, 1, 1, tzinfo=timezone.utc)
+rows = [(f"s{i % 4}", xla.TsValue(float(i % 7), align + timedelta(seconds=5 * i))) for i in range(120)]
+abort = TestingSource.ABORT()
+abort._triggered = SPENT
+out = []
+flow = Dataflow("win")
+s = op.input("inp", flow, TestingSource(rows[:60] + [abort] + rows[60:], batch_size=10))
+clock = win.EventClock(ts_getter=xla.column_ts, wait_for_system_duration=timedelta(seconds=5))
+windower = win.TumblingWindower(length=timedelta(minutes=1), align_to=align)
+op.output("out", win.stats_window("w", s, clock, windower).down, TestingSink(out))
+run_main(flow, epoch_interval=timedelta(0), recovery_config=RecoveryConfig(DB))
+"""
+
+
+def test_resuming_a_reference_window_store_loads_neither_jax_nor_the_reference(tmp_path, monkeypatch):
+    """The port resumes a window store that the JAX package wrote (its
+    rows pickle the JAX package's window classes) without importing
+    ``jax`` or ``bytewax_tpu``, and closes the windows that were still
+    open at the abort."""
+    from bytewax_tpu.recovery import init_db_dir as ref_init_db_dir
+
+    monkeypatch.setenv("BYTEWAX_TPU_SHARD", "0")
+    ref_init_db_dir(tmp_path, 1)
+    namespace = {}
+    code = WINDOW_RESUME_FLOW.replace("PKG", "bytewax_tpu").replace("SPENT", "False")
+    exec(code.replace("DB", repr(str(tmp_path))), namespace)
+    head = namespace["out"]
+    assert head
+    resume = (
+        "import sys\n"
+        + WINDOW_RESUME_FLOW.replace("PKG", "bytewax_tpu_torch").replace("SPENT", "True").replace("DB", repr(str(tmp_path)))
+        + """
+loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "bytewax_tpu")]
+assert not loaded, loaded
+assert out, out
+print(len(out))
+"""
+    )
+    env = dict(os.environ, BYTEWAX_TPU_PLATFORM="cpu", PYTHONPATH=str(ROOT))
+    res = subprocess.run(
+        [sys.executable, "-c", resume], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert res.returncode == 0, res.stderr
+    # 120 rows at 5 s a row: 10 one-minute windows of each of the 4
+    # stations, each closed once.
+    assert len(head) + int(res.stdout.split()[-1]) == 40
