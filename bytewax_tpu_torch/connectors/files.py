@@ -322,20 +322,30 @@ class DirSource(FixedPartitionedSource[str, int]):
 class _LineTap:
     """Pass-through line iterator remembering the last line handed
     out — when ``csv`` raises mid-parse, the remembered line is the
-    poison payload for the dead-letter record."""
+    poison payload for the dead-letter record — and the lines of the
+    row being read, until :meth:`take`."""
 
-    __slots__ = ("_lines", "last")
+    __slots__ = ("_lines", "last", "_row")
 
     def __init__(self, lines):
         self._lines = lines
         self.last: Optional[str] = None
+        self._row: List[str] = []
 
     def __iter__(self):
         return self
 
     def __next__(self):
         self.last = next(self._lines)
+        self._row.append(self.last)
         return self.last
+
+    def take(self) -> str:
+        """The raw lines handed out since the last call: the text of
+        the row the reader just returned (a quoted field may span
+        lines)."""
+        row, self._row = "".join(self._row), []
+        return row
 
 
 def _read_rows_dlq(
@@ -344,15 +354,20 @@ def _read_rows_dlq(
     """Pull up to ``limit`` rows (None = all) off a csv reader,
     dead-lettering parser-rejected rows — with the line the parse
     died on, via ``tap`` — into ``dead`` instead of raising.
-    Returns ``(rows, captured_count)``."""
+    Returns ``(rows, captured_count)``.
+
+    A row whose raw text holds a NUL is dead-lettered too, with the
+    error older ``csv`` modules raised for it: since Python 3.12
+    ``csv`` accepts NULs and would hand the row on as data."""
     out: List[Dict[str, str]] = []
     captured = 0
     while limit is None or len(out) < limit:
         try:
-            out.append(next(reader))
+            row = next(reader)
         except StopIteration:
             break
         except csv.Error as ex:
+            tap.take()
             captured += 1
             dead.append(
                 {
@@ -360,7 +375,32 @@ def _read_rows_dlq(
                     "payload": tap.last,
                 }
             )
+            continue
+        raw = tap.take()
+        if "\x00" in raw:
+            captured += 1
+            dead.append({"error": "Error: line contains NUL", "payload": raw})
+            continue
+        out.append(row)
     return out, captured
+
+
+def _nul_lines(lines: np.ndarray) -> bool:
+    """Whether any line of a split chunk holds a NUL character.  Fixed
+    width string arrays pad with zeros, so a zero code unit counts
+    only before a line's last nonzero one (a NUL that ends a line is
+    already lost to the padding)."""
+    if lines.dtype.kind not in "US":
+        return any("\x00" in ln for ln in lines.tolist())
+    if not len(lines) or not lines.dtype.itemsize:
+        return False
+    unit = np.uint8 if lines.dtype.kind == "S" else np.uint32
+    width = lines.dtype.itemsize // np.dtype(unit).itemsize
+    codes = np.ascontiguousarray(lines).view(unit).reshape(len(lines), width)
+    nonzero = codes != 0
+    length = width - np.argmax(nonzero[:, ::-1], axis=1)
+    length[~nonzero.any(axis=1)] = 0
+    return bool((~nonzero & (np.arange(width) < length[:, None])).any())
 
 
 class _CSVPartition(StatefulSourcePartition[Dict[str, str], int]):
@@ -390,9 +430,11 @@ class _CSVPartition(StatefulSourcePartition[Dict[str, str], int]):
             self._f.seek(resume_state)
         self._on_error = on_error
         self._batch_size = batch_size
-        self._tap = _LineTap(lines)
+        # Only dead-letter mode reads through the tap: it keeps each
+        # row's raw lines until the row is taken.
+        self._tap = _LineTap(lines) if on_error == "dlq" else None
         self._reader = csv.DictReader(
-            self._tap, fieldnames=self._fields, **fmtparams
+            self._tap or lines, fieldnames=self._fields, **fmtparams
         )
         self._batcher = batch(self._reader, batch_size)
         self._dead: List[dict] = []
@@ -556,7 +598,10 @@ class _ColumnarCSVPartition(StatefulSourcePartition[Any, int]):
         lines = out.cols["line"]
         n_quotes = self._count_quotes(lines, self._quote)
         cols = None
-        if self._simple and not n_quotes:
+        # Dead-letter mode sends a chunk with a NUL in a line to the
+        # csv fallback below, which dead-letters that row.
+        poisoned = self._on_error == "dlq" and _nul_lines(lines)
+        if self._simple and not n_quotes and not poisoned:
             cols = split_fields(lines, len(self._fields), self._delim)
         casted = (
             self._apply_sticky_casts(cols) if cols is not None else None

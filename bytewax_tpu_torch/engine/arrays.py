@@ -8,11 +8,19 @@ consume the columns directly.
 """
 
 from datetime import datetime
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["ArrayBatch", "TsValue", "VocabMap", "column_ts"]
+__all__ = [
+    "ArrayBatch",
+    "PeerVocab",
+    "TsValue",
+    "VocabMap",
+    "VocabMaps",
+    "column_ts",
+    "peer_vocab",
+]
 
 
 class TsValue(float):
@@ -185,6 +193,80 @@ class VocabMap:
         if n:
             self.table[mask] = -1
         return n
+
+    def continued_by(self, vocab: Any) -> bool:
+        """Whether ``vocab`` is this map's vocabulary or an exact
+        append-only extension of it (every entry compared, unlike the
+        sampled check of :meth:`sync`)."""
+        if self.vocab is None or vocab is self._ref:
+            return True
+        n = len(self.vocab)
+        return len(vocab) >= n and np.array_equal(
+            np.asarray(vocab[:n]), self.vocab
+        )
+
+
+class PeerVocab(np.ndarray):
+    """A ``key_vocab`` that arrived from another cluster process.
+
+    Each process dictionary-encodes its own rows (the 1BRC parser
+    numbers stations in the order it meets them), so the ids of a
+    routed batch mean something only against the vocabulary they came
+    with.  The driver tags such a vocabulary with its sender's process
+    id (``origin``) as the frame arrives; device states then map each
+    origin's ids on their own (:class:`VocabMaps`) instead of taking
+    them as ids of this process's vocabulary."""
+
+    origin: int
+
+    def __array_finalize__(self, obj):
+        self.origin = getattr(obj, "origin", -1)
+
+
+def peer_vocab(vocab: Any, origin: int) -> PeerVocab:
+    """``vocab`` as a :class:`PeerVocab` of process ``origin``."""
+    out = np.asarray(vocab).view(PeerVocab)
+    out.origin = origin
+    return out
+
+
+class VocabMaps:
+    """The :class:`VocabMap` of each vocabulary lineage feeding one
+    device state: this process's own (held to the append-only
+    contract, as a single map is) and one per sending process.
+
+    A peer's map starts over when a vocabulary from that peer does not
+    extend it exactly (a peer may forward batches of several
+    lineages); that costs only the map's cache, because internal ids
+    are allocated per key string: every lineage's table points a key
+    to the same internal id."""
+
+    __slots__ = ("_dtype", "local", "peers")
+
+    def __init__(self, dtype=np.int32):
+        self._dtype = dtype
+        self.local = VocabMap(dtype)
+        self.peers: Dict[int, VocabMap] = {}
+
+    def of(self, vocab: Any) -> Tuple[Optional[int], VocabMap, bool]:
+        """``(origin, map, fresh)`` for a batch's ``key_vocab``:
+        origin None for this process's own vocabulary; ``fresh`` when
+        a peer's map was just (re)started."""
+        if not isinstance(vocab, PeerVocab):
+            return None, self.local, False
+        vmap = self.peers.get(vocab.origin)
+        fresh = vmap is None or not vmap.continued_by(vocab)
+        if fresh:
+            vmap = self.peers[vocab.origin] = VocabMap(self._dtype)
+        return vocab.origin, vmap, fresh
+
+    def drop_ids(self, internal_ids) -> int:
+        """:meth:`VocabMap.drop_ids` on every lineage's map."""
+        ids = list(internal_ids)
+        return sum(
+            vmap.drop_ids(ids)
+            for vmap in (self.local, *self.peers.values())
+        )
 
 
 _factorize = None

@@ -37,7 +37,12 @@ from bytewax_tpu_torch.engine import faults as _faults
 from bytewax_tpu_torch.engine import flight as _flight
 from bytewax_tpu_torch.engine import flowmap as _flowmap
 from bytewax_tpu_torch.engine import wire as _wire
-from bytewax_tpu_torch.engine.arrays import ArrayBatch, factorize_keys
+from bytewax_tpu_torch.engine.arrays import (
+    ArrayBatch,
+    PeerVocab,
+    factorize_keys,
+    peer_vocab,
+)
 from bytewax_tpu_torch.engine.dlq import DeadLetterQueue
 from bytewax_tpu_torch.errors import (
     ClusterPeerDead,
@@ -1476,9 +1481,10 @@ class _StatefulBatchRt(_OpRt):
         self.logics: Dict[str, Any] = {}
         self.sched: Dict[str, datetime] = {}
         self.awoken: Set[str] = set()
-        # Cached per-vocab route hashes for columnar cluster splits.
-        self._vh_ref: Any = None
-        self._vh: Optional[np.ndarray] = None
+        # Cached route hashes for columnar cluster splits, per
+        # vocabulary lineage (None: this process's own; else the
+        # sending peer's, engine/arrays.py PeerVocab): (vocab, hashes).
+        self._vh: Dict[Optional[int], Tuple[Any, np.ndarray]] = {}
         # Recognized aggregation shapes fold on device instead of in
         # per-key Python logics (annotated by the flatten-time
         # lowering pass; same snapshots, same EOF emission order).
@@ -1732,33 +1738,32 @@ class _StatefulBatchRt(_OpRt):
         None when the batch has no key column to route on."""
         if "key_id" in batch.cols and batch.key_vocab is not None:
             vocab = batch.key_vocab
+            origin = vocab.origin if isinstance(vocab, PeerVocab) else None
+            ref, vh = self._vh.get(origin, (None, None))
             # Identity AND length: a list vocab grown in place keeps
             # its identity (VocabMap deliberately tolerates that), so
             # the hash cache must refresh when the length moves.
-            if vocab is not self._vh_ref or len(vocab) != len(self._vh):
+            if vocab is not ref or len(vocab) != len(vh):
                 arr = np.asarray(vocab)
-                prev = len(self._vh) if self._vh is not None else 0
+                prev = len(vh) if vh is not None else 0
                 if (
                     prev
                     and len(arr) >= prev
                     # Append-only growth (VocabMap enforces it): the
                     # hashed prefix is reusable — spot-check one
                     # entry, hash only the new suffix.
-                    and _route_hash(str(arr[prev - 1])) == self._vh[prev - 1]
-                    and _route_hash(str(arr[0])) == self._vh[0]
+                    and _route_hash(str(arr[prev - 1])) == vh[prev - 1]
+                    and _route_hash(str(arr[0])) == vh[0]
                 ):
                     if len(arr) > prev:
-                        self._vh = np.concatenate(
-                            [
-                                self._vh,
-                                _route_hashes_of(arr[prev:].tolist()),
-                            ]
+                        vh = np.concatenate(
+                            [vh, _route_hashes_of(arr[prev:].tolist())]
                         )
                 else:
-                    self._vh = _route_hashes_of(arr.tolist())
-                self._vh_ref = vocab
+                    vh = _route_hashes_of(arr.tolist())
+                self._vh[origin] = (vocab, vh)
             ids = batch.numpy("key_id")
-            return (self._vh % w_count)[ids]
+            return (vh % w_count)[ids]
         if "key" in batch.cols:
             keys = batch.numpy("key")
             inverse, uniq = factorize_keys(keys)
@@ -3106,12 +3111,12 @@ class _Driver:
         _faults.configure(proc_id)
         self.comm = None
         if self.proc_count > 1:
-            msg = (
-                "multi-process clusters are not ported to the torch "
-                "port yet (ROADMAP queue A item 8); run one process, "
-                "with worker_count_per_proc for more lanes"
-            )
-            raise NotImplementedError(msg)
+            from bytewax_tpu_torch.engine.comm import Comm
+
+            self.comm = Comm(addresses, proc_id, generation=generation)
+        #: Per peer, the tagged views of the vocabularies its columnar
+        #: frames carried lately (``_from_peer``).
+        self._peer_vocabs: Dict[int, List[Tuple[Any, PeerVocab]]] = {}
         #: Per-peer coalescing of ship_route slices (engine/wire.py;
         #: docs/performance.md "Columnar exchange"): same-(peer,
         #: stream, lane) slices merge under the ingest coalescer's
@@ -3507,6 +3512,36 @@ class _Driver:
             routes=list(range(self.local_lo, self.local_hi)),
         ):
             yield key, loads(ser)
+
+    def _from_peer(self, src: int, entry: Entry) -> Entry:
+        """A peer's dictionary-encoded batch carries ids of the peer's
+        own vocabulary: tag the vocabulary with its sender
+        (engine/arrays.py ``PeerVocab``) so that no device state or
+        route cache takes them as ids of this process's.  One tagged
+        view per (peer, vocabulary object), so an unchanged vocabulary
+        keeps its identity from frame to frame."""
+        w, items = entry
+        if (
+            type(items) is not ArrayBatch
+            or items.key_vocab is None
+            or "key_id" not in items.cols
+        ):
+            return entry
+        vocab = items.key_vocab
+        seen = self._peer_vocabs.setdefault(src, [])
+        for orig, tagged in seen:
+            if orig is vocab and len(tagged) == len(vocab):
+                break
+        else:
+            tagged = peer_vocab(vocab, src)
+            seen.insert(0, (vocab, tagged))
+            del seen[4:]
+        return (
+            w,
+            ArrayBatch(
+                items.cols, key_vocab=tagged, value_scale=items.value_scale
+            ),
+        )
 
     def route(self, stream_id: str, entry: Entry) -> None:
         for ci, port in self.plan.consumers.get(stream_id, []):
@@ -3927,12 +3962,12 @@ class _Driver:
         if kind == "deliver":
             _kind, op_idx, port, entry = msg
             self.rcvd[_src] += 1
-            self.rts[op_idx].queues[port].append(entry)
+            self.rts[op_idx].queues[port].append(self._from_peer(_src, entry))
             self._progressed = True
         elif kind == "route":
             _kind, stream_id, entry = msg
             self.rcvd[_src] += 1
-            self.route(stream_id, entry)
+            self.route(stream_id, self._from_peer(_src, entry))
         elif kind == "report_msg":
             self._reports[_src] = msg[1]
         elif kind == "hold":
@@ -4249,17 +4284,17 @@ class _Driver:
             )
             return
         if os.environ.get("BYTEWAX_TPU_DISTRIBUTED") == "1":
-            # The jax distributed runtime pins num_processes at
-            # initialize time and cannot be re-initialized in this
-            # process: survivors would rebuild against a stale world
-            # size while the joiner dials a coordinator that expects
-            # the old one.  Multi-host pods resize through the full
-            # drain-to-stop relaunch instead (docs/deployment.md).
+            # The port has no distributed device runtime yet (ROADMAP
+            # queue A item 9), and a cluster of more than one process
+            # refuses the knob at startup: a move from one process to
+            # several would rebuild into that refusal.  Resize through
+            # the drain-to-stop relaunch instead, as the JAX package
+            # does under its distributed runtime.
             logging.getLogger(__name__).warning(
                 "refusing live reconfigure under "
-                "BYTEWAX_TPU_DISTRIBUTED=1: the jax distributed "
-                "runtime cannot change world size in-process; use "
-                "the drain-to-stop path "
+                "BYTEWAX_TPU_DISTRIBUTED=1: the torch port has no "
+                "distributed device runtime (ROADMAP queue A item 9); "
+                "use the drain-to-stop path "
                 "(BYTEWAX_TPU_AUTOSCALE_LIVE=0)"
             )
             return

@@ -39,7 +39,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from bytewax_tpu_torch.engine import flight as _flight
-from bytewax_tpu_torch.engine.arrays import KeyEncoder, VocabMap
+from bytewax_tpu_torch.engine.arrays import KeyEncoder, VocabMaps
 
 __all__ = ["DeviceWindowAggState", "WindowAccelSpec"]
 
@@ -164,8 +164,9 @@ class DeviceWindowAggState:
         # Cached (kids, wids, closes) arrays over open_close_us;
         # invalidated whenever the open-window set changes.
         self._open_cache = None
-        # Dictionary-encoded fast path: external id -> internal kid.
-        self._vocab = VocabMap(dtype=np.int64)
+        # Dictionary-encoded fast path: external id -> internal kid,
+        # one map per vocabulary lineage (engine/arrays.py PeerVocab).
+        self._vocab = VocabMaps(dtype=np.int64)
         # Automatic encoder for plain string key columns.
         self._enc = KeyEncoder()
         # Sticky marker: itemized promotion failed a deterministic
@@ -210,8 +211,9 @@ class DeviceWindowAggState:
         """Map dictionary-encoded external ids to internal key ids
         with one table lookup; vocabularies must be append-only
         extensions between batches (see :class:`VocabMap`)."""
-        self._vocab.sync(ids, vocab, self._key_ids_for)
-        return self._vocab.table[ids]
+        _origin, vmap, _fresh = self._vocab.of(vocab)
+        vmap.sync(ids, vocab, self._key_ids_for)
+        return vmap.table[ids]
 
     def on_batch_columnar(self, batch):
         """Columnar fast path: a batch with ``"key"`` (strings) or

@@ -384,6 +384,37 @@ def _encode_columnar(
     return b"".join(parts)
 
 
+def _refuse_device_tensors(msg: Any) -> None:
+    """Raise if a routed batch holds a tensor on a device: frames
+    between processes carry host columns only, and pickling a CUDA
+    tensor would copy it through the host in secret (or fail on a
+    receiver with another device).  The sender decides where its
+    columns live; nothing here copies them."""
+    if type(msg) is not tuple or not msg or msg[0] not in ("deliver", "route"):
+        return
+    entry = msg[-1]
+    if type(entry) is not tuple or len(entry) != 2:
+        return
+    batch = entry[1]
+    if not isinstance(batch, ArrayBatch):
+        return
+    named = list(batch.cols.items()) + [("key_vocab", batch.key_vocab)]
+    for name, col in named:
+        dev = getattr(col, "device", None)
+        if (
+            dev is not None
+            and type(col).__module__.split(".")[0] == "torch"
+            and getattr(dev, "type", "cpu") != "cpu"
+        ):
+            err = (
+                f"a routed batch's {name!r} is a tensor on {dev}: "
+                "frames between cluster processes carry numpy columns "
+                "only; move it to the host before it leaves its "
+                "process"
+            )
+            raise TypeError(err)
+
+
 def encode(
     msg: Any,
     session: Optional[WireSession] = None,
@@ -395,6 +426,7 @@ def encode(
     ``BYTEWAX_TPU_WIRE=pickle``).  ``session``/``peer`` (set by the
     comm layer) arm the per-(peer, stream) vocab cache."""
     t0 = time.perf_counter()
+    _refuse_device_tensors(msg)
     data = None
     if wire_mode() == "columnar":
         data = _encode_columnar(msg, session, peer)

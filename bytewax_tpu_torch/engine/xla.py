@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from bytewax_tpu_torch.engine import flight as _flight
-from bytewax_tpu_torch.engine.arrays import ArrayBatch, KeyEncoder, VocabMap
+from bytewax_tpu_torch.engine.arrays import ArrayBatch, KeyEncoder, VocabMaps
 from bytewax_tpu_torch.ops.segment import (
     AGG_KINDS,
     identity_for,
@@ -127,9 +127,10 @@ class DeviceAggState:
         self._fields: Optional[Dict[str, torch.Tensor]] = None
         # Dictionary-encoded fast path: external id -> slot table,
         # mirrored on device so raw (id, value) columns are all the
-        # host ships per batch.
-        self._vocab = VocabMap(dtype=np.int32)
-        self._dev_map: Optional[torch.Tensor] = None
+        # host ships per batch; one table per vocabulary lineage (this
+        # process's and each peer's, engine/arrays.py PeerVocab).
+        self._vocab = VocabMaps(dtype=np.int32)
+        self._dev_maps: Dict[Optional[int], torch.Tensor] = {}
         # Automatic encoder for plain string key columns: steady
         # state is one searchsorted per batch, no per-row hashing.
         self._enc = KeyEncoder()
@@ -166,7 +167,7 @@ class DeviceAggState:
             return
         # The scratch slot moves to the new last index; any device
         # id→slot table pointing at the old scratch is stale.
-        self._dev_map = None
+        self._dev_maps.clear()
         self._ensure_fields()
         grown = {}
         for name, (init, _op) in self.kind.fields.items():
@@ -208,7 +209,7 @@ class DeviceAggState:
             # The on-device id→slot table still routes the dropped
             # external id to this (now reusable) slot; rebuild it
             # on the next vocab sync.
-            self._dev_map = None
+            self._dev_maps.clear()
 
     def _release(self, key: str) -> Optional[int]:
         """Free a key's slot WITHOUT the vocab drop (extract_keys
@@ -384,10 +385,11 @@ class DeviceAggState:
         _flight.note_transfer("d2h", host.nbytes)
         return {name: host[i] for i, name in enumerate(names)}
 
-    def _sync_vocab(self, ids: np.ndarray, vocab: np.ndarray) -> np.ndarray:
+    def _sync_vocab(self, ids: np.ndarray, vocab: np.ndarray):
         """Assign slots for newly-seen external ids (alloc reuses a
         recovery-resumed slot if one exists) and refresh the on-device
-        id→slot table; returns the touched unique ids."""
+        id→slot table of the vocabulary's lineage; returns the touched
+        unique ids, the lineage's map and its device table."""
         had_new = []
 
         def alloc_many(keys):
@@ -395,15 +397,17 @@ class DeviceAggState:
             # alloc reuses a recovery-resumed slot if one exists.
             return [self.alloc(key) for key in keys]
 
-        uniq = self._vocab.sync(ids, vocab, alloc_many)
-        if had_new or self._dev_map is None:
+        origin, vmap, fresh = self._vocab.of(vocab)
+        uniq = vmap.sync(ids, vocab, alloc_many)
+        dev_map = self._dev_maps.get(origin)
+        if had_new or fresh or dev_map is None:
             # Rebuild the device table: unseen ids and the sentinel
             # (index len(vocab)) route to the scratch slot.
-            table = np.append(self._vocab.table, -1)
+            table = np.append(vmap.table, -1)
             table = np.where(table < 0, self.capacity - 1, table)
-            self._dev_map = self._to_device(table, np.int32)
-            _flight.note_transfer("h2d", self._dev_map.nbytes)
-        return uniq
+            dev_map = self._dev_maps[origin] = self._to_device(table, np.int32)
+            _flight.note_transfer("h2d", dev_map.nbytes)
+        return uniq, vmap, dev_map
 
     def update_batch(self, batch: ArrayBatch) -> List[str]:
         if "key_id" in batch.cols and batch.key_vocab is not None:
@@ -429,10 +433,10 @@ class DeviceAggState:
                 values = (values * batch.value_scale).astype(np.float32)
             elif not quantized:
                 values = self._pick_dtype(values)
-            uniq = self._sync_vocab(ids, batch.key_vocab)
+            uniq, vmap, dev_map = self._sync_vocab(ids, batch.key_vocab)
             self._ensure_fields()
             n = len(values)
-            sentinel = len(self._vocab.table)
+            sentinel = len(vmap.table)
             if quantized and sentinel < 2**15:
                 # Fixed-point fast path: one int16 [2, n] transfer.
                 packed = np.empty((2, n), dtype=np.int16)
@@ -443,7 +447,7 @@ class DeviceAggState:
                 update_fields_packed(
                     self.kind,
                     self._fields,
-                    self._dev_map,
+                    dev_map,
                     dev_packed,
                     float(np.float32(batch.value_scale)),
                 )
@@ -459,9 +463,9 @@ class DeviceAggState:
                     "h2d", dev_ids.nbytes + dev_vals.nbytes
                 )
                 update_fields_vocab(
-                    self.kind, self._fields, self._dev_map, dev_ids, dev_vals
+                    self.kind, self._fields, dev_map, dev_ids, dev_vals
                 )
-            return [str(self._vocab.vocab[e]) for e in uniq.tolist()]
+            return [str(vmap.vocab[e]) for e in uniq.tolist()]
         if "key" in batch.cols:
             values = batch.numpy("value")
             if batch.value_scale is not None:
@@ -566,8 +570,8 @@ class DeviceAggState:
         self.key_to_slot.clear()
         self.slot_keys.clear()
         self._fields = None
-        self._vocab = VocabMap(dtype=np.int32)
-        self._dev_map = None
+        self._vocab = VocabMaps(dtype=np.int32)
+        self._dev_maps = {}
         self._enc.clear()
         self._iddict = {}
         self._id_keys = []
@@ -609,7 +613,7 @@ class DeviceAggState:
             if s is not None
         ]
         if slots and self._vocab.drop_ids(slots):
-            self._dev_map = None
+            self._dev_maps.clear()
         return [(k, s) for k, s in snaps if s is not None]
 
     def inject_keys(self, items: List[Tuple[str, Any]]) -> None:

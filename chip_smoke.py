@@ -69,14 +69,27 @@ Phases, each of which raises on any failure:
    the ledger phases ``snapshot``, ``commit`` and ``snapshot_lane``,
    store rows per close, the store's size, the resume's read and
    install seconds, the migration's seconds and the launches;
-10. report — one ``{"kernels": [...]}`` line.
+10. cluster — clusters of processes on the one card, each child
+   importing the port on its own and reporting at exit (its device,
+   both kernels' launches, demotions, ledger phases, start-up
+   seconds): 2^23 lines of 1BRC text at 10,000 stations read by
+   ``BrcFileSource`` through ``python -m bytewax_tpu_torch.run`` (one
+   process) and through ``python -m bytewax_tpu_torch.testing -p 2``
+   and ``-p 4``, each process's output in its own file; ``anomaly_flow``
+   over 8·2^20 readings of 10,000 sensors on 2 processes, partition p
+   reading the sensors whose id is p modulo 2; and the 1BRC file with a
+   recovery store under ``run --autoscale 2:2``, process 1 SIGKILLed
+   once epoch 8 is durable, relaunched by the supervisor, exactly once
+   against the oracle, with the time to recover;
+11. report — one ``{"kernels": [...]}`` line.
 
 Phases 5 and 6 hold their output against a float64 numpy oracle of
 the same semantics: counts, min and max exactly, means within 1e-5 of
 the rows' mean absolute value.  Every phase that drives a flow resets
 both kernels' launch counts just before ``run_main`` and fails if the
-run launched its kernel no time (phases 8 and 9 also fail on any step
-demoted to the host tier).
+run launched its kernel no time (phases 8 to 10 also fail on any step
+demoted to the host tier; phase 10 on any process that is not on
+``cuda:0``, launched its kernel no time, or exited non-zero).
 
 Every result line is JSON and carries the card's name and power
 limit.  The last line is ``{"ok": true, "device": {...}}``.
@@ -1862,14 +1875,20 @@ def _check_scored(name: str, out, vocab_index, data, rows: slice, kind: str) -> 
     """A flow's output against the oracle: the same rows per key, in
     order, with exact values; then per kind: z and flags, the EMA, or
     the running extrema."""
+    width = {"zscore": 3, "ema": 2, "extrema": 3}[kind]
+    got_ids, got = _out_columns(out, vocab_index, width)
+    return _check_scored_cols(name, got_ids, got, data, rows, kind)
+
+
+def _check_scored_cols(name: str, got_ids, got, data, rows: slice, kind: str) -> dict:
+    """:func:`_check_scored` on output already in columns: key ids and
+    the value columns of each scored row."""
     import numpy as np
 
-    width = {"zscore": 3, "ema": 2, "extrema": 3}[kind]
     n = rows.stop - rows.start
-    if len(out) != n:
-        msg = f"{name}: {len(out)} rows out, {n} in"
+    if len(got_ids) != n:
+        msg = f"{name}: {len(got_ids)} rows out, {n} in"
         raise AssertionError(msg)
-    got_ids, got = _out_columns(out, vocab_index, width)
     ids = data["ids"][rows]
     rank = data["rank"][rows]
     grid = data["grid"]
@@ -2661,6 +2680,571 @@ def phase_recovery(card: dict, n: int) -> dict:
     return {"fold": fold, "scan": scan}
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+#: 1BRC text lines the cluster runs read, and the process counts.
+CLUSTER_LINES = 1 << 23
+CLUSTER_PROCS = (1, 2, 4)
+#: The supervised crash: batches a partition (one epoch a batch), the
+#: epoch that must be durable before process 1 is killed, and the
+#: pause before each batch (so that the kill lands mid-run).
+CRASH_PART_BATCHES = 16
+CRASH_AFTER_EPOCH = 8
+CRASH_PACE_S = 0.25
+#: Seconds any one cluster command may take.
+CLUSTER_TIMEOUT_S = 240
+
+#: The flows of phase 10, one module that every cluster process
+#: imports (``CLUSTER_FLOW`` picks one).  At exit each process writes a
+#: JSON report into ``CLUSTER_REPORTS``: its proc id, its device, both
+#: kernels' launches, step demotions, the ledger's phase seconds, the
+#: seconds from its start to its import of the engine and to its first
+#: fold and scan on the device, and whether it built a kernel.
+CLUSTER_FLOW_MODULE = """
+import atexit
+import json
+import os
+import time
+
+
+def _started() -> float:
+    # The process's start, from its start time in clock ticks since
+    # boot and the clock since boot now.
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    age = time.clock_gettime(time.CLOCK_BOOTTIME) - ticks / os.sysconf("SC_CLK_TCK")
+    return time.time() - age
+
+
+START = _started()
+
+import numpy as np
+import torch
+
+import bytewax_tpu_torch.operators as op
+from bytewax_tpu_torch import _metrics, utils, xla
+from bytewax_tpu_torch.connectors.files import DirSink
+from bytewax_tpu_torch.dataflow import Dataflow
+from bytewax_tpu_torch.engine import flight
+from bytewax_tpu_torch.engine.arrays import ArrayBatch
+from bytewax_tpu_torch.inputs import FixedPartitionedSource, StatefulSourcePartition
+from bytewax_tpu_torch.models.anomaly import anomaly_flow
+from bytewax_tpu_torch.models.brc import BrcFileSource
+from bytewax_tpu_torch.ops import fold_kernel, scan_kernel
+from bytewax_tpu_torch.outputs import DynamicSink, StatelessSinkPartition
+
+IMPORTED = time.time()
+FIRST = {}
+#: When the dataflow's run ended (the scored sink's close); else the
+#: report's own time.
+ENDED = []
+PROC = int(os.environ.get("BYTEWAX_PROCESS_ID", "0"))
+WORK = os.environ["CLUSTER_WORK"]
+
+
+def _first(name, fn):
+    def timed(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        if name not in FIRST:
+            torch.cuda.synchronize()
+            FIRST[name] = time.time()
+        return out
+
+    return timed
+
+
+fold_kernel.fold = _first("fold", fold_kernel.fold)
+scan_kernel.scan = _first("scan", scan_kernel.scan)
+
+
+def _report():
+    demotions = sum(
+        s.value
+        for m in _metrics.step_demotion_count.collect()
+        for s in m.samples
+        if s.name.endswith("_total")
+    )
+    rep = {
+        "proc_id": PROC,
+        "pid": os.getpid(),
+        "device": str(utils.device()),
+        "fold_launches": fold_kernel.launches,
+        "scan_launches": scan_kernel.launches,
+        "demotions": demotions,
+        "phase_seconds": dict(flight.RECORDER.phase_totals),
+        "import_s": IMPORTED - START,
+        "first_fold_s": FIRST["fold"] - START if "fold" in FIRST else None,
+        "first_scan_s": FIRST["scan"] - START if "scan" in FIRST else None,
+        "end_s": (ENDED[0] if ENDED else time.time()) - START,
+        "built_a_kernel": bool(fold_kernel.build_log or scan_kernel.build_log),
+    }
+    path = os.path.join(os.environ["CLUSTER_REPORTS"], f"report-{PROC}-{os.getpid()}.json")
+    with open(path, "w") as f:
+        json.dump(rep, f)
+
+
+atexit.register(_report)
+with open(os.path.join(os.environ["CLUSTER_REPORTS"], f"started-{PROC}-{os.getpid()}"), "w"):
+    pass
+
+
+class _Paced(FixedPartitionedSource):
+    # Another source's partitions, each batch at least pace_s after
+    # the one before (through next_awake: the driver keeps running).
+    def __init__(self, inner, pace_s):
+        self.inner, self.pace_s = inner, pace_s
+
+    def list_parts(self):
+        return self.inner.list_parts()
+
+    def build_part(self, step_id, for_part, resume_state):
+        from datetime import datetime, timedelta, timezone
+
+        part = self.inner.build_part(step_id, for_part, resume_state)
+        nxt, awake = part.next_batch, [None]
+
+        def paced():
+            awake[0] = datetime.now(timezone.utc) + timedelta(seconds=self.pace_s)
+            return nxt()
+
+        part.next_batch = paced
+        part.next_awake = lambda: awake[0]
+        return part
+
+
+def brc():
+    parts = int(os.environ["CLUSTER_PARTS"])
+    src = BrcFileSource(os.path.join(WORK, "measurements.txt"), part_count=parts,
+                        chunk_bytes=int(os.environ["CLUSTER_CHUNK"]))
+    pace = float(os.environ.get("CLUSTER_PACE_S", "0"))
+    if pace:
+        src = _Paced(src, pace)
+    flow = Dataflow("cluster_brc")
+    s = op.input("inp", flow, src)
+    s = xla.stats_final("stats", s)
+    s = op.map("fmt", s, lambda kv: (kv[0], f"{kv[0]};{kv[1][0]!r};{kv[1][1]!r};{kv[1][2]!r};{kv[1][3]}"))
+    op.output("out", s, DirSink(os.environ["CLUSTER_OUT"], file_count=parts))
+    return flow
+
+
+VOCAB = np.array([f"sensor_{i:07d}" for i in range(int(os.environ.get("CLUSTER_SENSORS", "1")))])
+
+
+class _SensorPart(StatefulSourcePartition):
+    # Partition p of the readings: each batch's rows of the sensors
+    # whose id is p modulo 2, in their order.
+    def __init__(self, p, at):
+        self.p, self.at = p, at
+        self.ids = np.load(os.path.join(WORK, "ids.npy"), mmap_mode="r")
+        self.vals = np.load(os.path.join(WORK, "vals.npy"), mmap_mode="r")
+        self.bounds = np.load(os.path.join(WORK, "bounds.npy"))
+
+    def next_batch(self):
+        if self.at >= len(self.bounds) - 1:
+            raise StopIteration()
+        lo, hi = self.bounds[self.at], self.bounds[self.at + 1]
+        self.at += 1
+        ids = np.asarray(self.ids[lo:hi])
+        mine = ids % 2 == self.p
+        return ArrayBatch({"key_id": ids[mine], "value": np.asarray(self.vals[lo:hi])[mine]}, key_vocab=VOCAB)
+
+    def snapshot(self):
+        return self.at
+
+
+class SensorSource(FixedPartitionedSource):
+    def list_parts(self):
+        return ["p0", "p1"]
+
+    def build_part(self, step_id, for_part, resume_state):
+        return _SensorPart(int(for_part[1:]), resume_state or 0)
+
+
+class _Scored(StatelessSinkPartition):
+    # Keeps the scored rows and writes them as columns at the end.
+    def __init__(self, worker):
+        self.worker, self.rows = worker, []
+
+    def write_batch(self, items):
+        self.rows.extend(items)
+
+    def close(self):
+        ENDED.append(time.time())
+        n = len(self.rows)
+        ids = np.fromiter((int(k[7:]) for k, _r in self.rows), dtype=np.int64, count=n)
+        cols = [np.fromiter((r[j] for _k, r in self.rows), dtype=np.float64, count=n) for j in range(3)]
+        np.save(os.path.join(os.environ["CLUSTER_OUT"], f"scored-{PROC}-{self.worker}.npy"), np.stack([ids, *cols]))
+
+
+class ScoredSink(DynamicSink):
+    def build(self, step_id, worker_index, worker_count):
+        return _Scored(worker_index)
+
+
+def anomaly():
+    return anomaly_flow(SensorSource(), ScoredSink(), threshold=float(os.environ["CLUSTER_THRESHOLD"]))
+
+
+flow = {"brc": brc, "anomaly": anomaly}[os.environ["CLUSTER_FLOW"]]()
+"""
+
+
+def _cluster_env(work: Path, reports: Path, out: Path, **knobs) -> dict:
+    """The environment of a cluster command: the checkout on the
+    path, the card (never the CPU), and the flow module's settings."""
+    env = dict(os.environ)
+    env.pop("BYTEWAX_TPU_PLATFORM", None)
+    env["PYTHONPATH"] = str(HERE) + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(CLUSTER_WORK=str(work), CLUSTER_REPORTS=str(reports), CLUSTER_OUT=str(out))
+    env.update({k: str(v) for k, v in knobs.items()})
+    return env
+
+
+def _fresh_dirs(work: Path, name: str):
+    reports, out = work / f"{name}_reports", work / f"{name}_out"
+    for d in (reports, out):
+        d.mkdir()
+    return reports, out
+
+
+def _cluster_reports(reports: Path, name: str, procs: int, scan: bool = False) -> list:
+    """Every process's report; fails unless each of the ``procs``
+    processes reported, ran on ``cuda:0``, launched the fold (and the
+    scan, where ``scan``), demoted no step and built no kernel (phase
+    1 built them)."""
+    reps = [json.loads(p.read_text()) for p in sorted(reports.glob("report-*.json"))]
+    if sorted({r["proc_id"] for r in reps}) != list(range(procs)):
+        msg = f"{name}: reports from processes {[r['proc_id'] for r in reps]}, {procs} expected"
+        raise AssertionError(msg)
+    for r in reps:
+        where = f"{name}, process {r['proc_id']} (pid {r['pid']})"
+        if r["device"] != "cuda:0":
+            msg = f"{where}: device {r['device']}, not cuda:0"
+            raise AssertionError(msg)
+        if r["fold_launches"] <= 0 and not scan:
+            msg = f"{where}: the segment-fold kernel was launched no time"
+            raise AssertionError(msg)
+        if scan and r["scan_launches"] <= 0:
+            msg = f"{where}: the segmented-scan kernel was launched no time"
+            raise AssertionError(msg)
+        if r["demotions"]:
+            msg = f"{where}: {r['demotions']} steps demoted to the host tier"
+            raise AssertionError(msg)
+        if r["built_a_kernel"]:
+            msg = f"{where}: built a kernel that phase 1 had built"
+            raise AssertionError(msg)
+    return reps
+
+
+def _run_cluster_cmd(name: str, cmd: list, env: dict, cwd: Path):
+    """Run one cluster command to its end; fails on a non-zero exit.
+    Returns the wall seconds and the command's standard error."""
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, cwd=cwd, capture_output=True, text=True,
+                         timeout=CLUSTER_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        msg = f"{name}: exit {res.returncode}\n{res.stderr[-3000:]}"
+        raise AssertionError(msg)
+    return seconds, res.stderr
+
+
+def _brc_deci_oracle(stations, ids, deci) -> dict:
+    """Per station: count, min and max deci-degrees, the mean and the
+    mean |value|, from exact integer sums."""
+    import numpy as np
+
+    n = len(stations)
+    counts = np.bincount(ids, minlength=n)
+    sums = np.bincount(ids, weights=deci, minlength=n)
+    abs_sums = np.bincount(ids, weights=np.abs(deci), minlength=n)
+    mins = np.full(n, 10_000)
+    maxs = np.full(n, -10_000)
+    np.minimum.at(mins, ids, deci)
+    np.maximum.at(maxs, ids, deci)
+    return {
+        str(stations[i]): (int(counts[i]), int(mins[i]), int(maxs[i]),
+                           sums[i] / counts[i] / 10.0, abs_sums[i] / counts[i] / 10.0)
+        for i in range(n)
+        if counts[i]
+    }
+
+
+def _check_cluster_brc(name: str, out: Path, want: dict) -> float:
+    """The union of the processes' files against the oracle: each
+    station once, counts exact, min and max exact after rounding to
+    one decimal, means within 1e-5 of the mean |value|."""
+    got = {}
+    for path in sorted(out.iterdir()):
+        for line in path.read_text().splitlines():
+            station, mn, mean, mx, count = line.split(";")
+            if station in got:
+                msg = f"{name}: station {station} emitted twice"
+                raise AssertionError(msg)
+            got[station] = (int(count), float(mn), float(mx), float(mean))
+    if set(got) != set(want):
+        msg = f"{name}: {len(got)} stations out, {len(want)} expected"
+        raise AssertionError(msg)
+    worst = 0.0
+    for station, (count, mn, mx, mean, mean_abs) in want.items():
+        gcount, gmn, gmx, gmean = got[station]
+        if (gcount, round(gmn * 10), round(gmx * 10)) != (count, mn, mx):
+            msg = f"{name}, {station}: {got[station]} against count {count}, min {mn}, max {mx} deci"
+            raise AssertionError(msg)
+        worst = max(worst, _check_mean(gmean, mean, mean_abs, f"{name}, {station}"))
+    return worst
+
+
+def _child_fields(reps: list) -> dict:
+    return {
+        "children": [
+            {k: r[k] for k in ("proc_id", "device", "fold_launches", "scan_launches",
+                               "import_s", "first_fold_s", "first_scan_s", "end_s", "phase_seconds")}
+            for r in sorted(reps, key=lambda r: r["proc_id"])
+        ],
+        "startup_s": [r["first_fold_s"] if r["first_fold_s"] is not None else r["first_scan_s"]
+                      for r in sorted(reps, key=lambda r: r["proc_id"])],
+    }
+
+
+def _after_startup(reps: list) -> float:
+    """Seconds from the latest first device call to the latest end of
+    run, each counted from its own process's start (the children start
+    together)."""
+    first = max(r["first_fold_s"] or r["first_scan_s"] for r in reps)
+    return max(r["end_s"] for r in reps) - first
+
+
+def _cluster_brc(card: dict, work: Path, want: dict, n: int, size: int) -> dict:
+    """1BRC text through the CLI (one process) and through the
+    localhost spawner (2 and 4 processes on the one card); returns the
+    fold launches of each run."""
+    launches = {}
+    flow_py = work / "cluster_flows.py"
+    for procs in CLUSTER_PROCS:
+        name = f"cluster_brc_p{procs}"
+        reports, out = _fresh_dirs(work, name)
+        env = _cluster_env(work, reports, out, CLUSTER_FLOW="brc", CLUSTER_PARTS=procs,
+                           CLUSTER_CHUNK=16 << 20)
+        if procs == 1:
+            cmd = [sys.executable, "-m", "bytewax_tpu_torch.run", f"{flow_py}:flow"]
+        else:
+            cmd = [sys.executable, "-m", "bytewax_tpu_torch.testing", f"{flow_py}:flow",
+                   "-p", str(procs)]
+        seconds, _err = _run_cluster_cmd(name, cmd, env, work)
+        reps = _cluster_reports(reports, name, procs)
+        worst = _check_cluster_brc(name, out, want)
+        launches[name] = sum(r["fold_launches"] for r in reps)
+        _emit(
+            card,
+            "cluster",
+            run=name,
+            entry="python -m bytewax_tpu_torch.run" if procs == 1
+            else f"python -m bytewax_tpu_torch.testing -p {procs}",
+            processes=procs,
+            lines=n,
+            file_bytes=size,
+            stations=len(want),
+            seconds=seconds,
+            lines_per_s=n / seconds,
+            # Once every process has folded once, to the last one's end.
+            lines_per_s_after_startup=n / _after_startup(reps),
+            fold_launches=launches[name],
+            fold_launches_by_process=[r["fold_launches"] for r in sorted(reps, key=lambda r: r["proc_id"])],
+            max_mean_rel_err=worst,
+            cpu_count=os.cpu_count(),
+            **_child_fields(reps),
+        )
+    return launches
+
+
+def _cluster_anomaly(card: dict, work: Path) -> int:
+    """``anomaly_flow`` over 8·2^20 readings of 10,000 sensors on a
+    2-process cluster: partition p reads the sensors whose id is p
+    modulo 2, and keyed routing sends about half of each to the other
+    process; returns the scan launches."""
+    import numpy as np
+
+    data = _anomaly_data(ANOMALY_BATCHES, SCAN_ROWS, SCAN_KEYS, seed=20)
+    np.save(work / "ids.npy", np.concatenate(data["ids_b"]))
+    np.save(work / "vals.npy", np.concatenate(data["vals_b"]))
+    np.save(work / "bounds.npy", np.cumsum([0] + [len(b) for b in data["ids_b"]]))
+    name = "cluster_anomaly_p2"
+    reports, out = _fresh_dirs(work, name)
+    env = _cluster_env(work, reports, out, CLUSTER_FLOW="anomaly", CLUSTER_SENSORS=SCAN_KEYS,
+                       CLUSTER_THRESHOLD=THRESHOLD)
+    cmd = [sys.executable, "-m", "bytewax_tpu_torch.testing", f"{work / 'cluster_flows.py'}:flow",
+           "-p", "2"]
+    seconds, _err = _run_cluster_cmd(name, cmd, env, work)
+    reps = _cluster_reports(reports, name, 2, scan=True)
+    parts = [np.load(p) for p in sorted(out.glob("scored-*.npy"))]
+    scored = np.concatenate(parts, axis=1)
+    rows = SCAN_ROWS * ANOMALY_BATCHES
+    checked = _check_scored_cols(name, scored[0].astype(np.int64), list(scored[1:]), data,
+                                 slice(0, rows), "zscore")
+    launches = sum(r["scan_launches"] for r in reps)
+    _emit(
+        card,
+        "cluster",
+        run=name,
+        entry="python -m bytewax_tpu_torch.testing -p 2",
+        flow="anomaly_flow",
+        processes=2,
+        rows=rows,
+        sensors=SCAN_KEYS,
+        seconds=seconds,
+        rows_per_s=rows / seconds,
+        rows_per_s_after_startup=rows / _after_startup(reps),
+        scan_launches=launches,
+        scan_launches_by_process=[r["scan_launches"] for r in sorted(reps, key=lambda r: r["proc_id"])],
+        cpu_count=os.cpu_count(),
+        **checked,
+        **_child_fields(reps),
+    )
+    return launches
+
+
+def _fronts(db: Path, worker: int):
+    """``(ex_num, epoch, resume_epoch)`` rows of one worker's frontier
+    in a recovery store: the epoch after its last durable close in
+    each execution.  Read-only; a busy store reads as nothing yet."""
+    import sqlite3
+
+    rows = []
+    for part in sorted(db.glob("part-*.sqlite3")):
+        try:
+            con = sqlite3.connect(f"file:{part}?mode=ro", uri=True, timeout=0.5)
+            try:
+                rows += con.execute(
+                    "SELECT f.ex_num, f.epoch, e.resume_epoch FROM fronts f JOIN exs e "
+                    "ON e.ex_num = f.ex_num AND e.worker_index = f.worker_index "
+                    "WHERE f.worker_index = ?",
+                    (worker,),
+                ).fetchall()
+            finally:
+                con.close()
+        except sqlite3.OperationalError:
+            pass
+    return rows
+
+
+def _cluster_crash(card: dict, work: Path, want: dict, size: int) -> int:
+    """1BRC with a recovery store under the supervisor (``run
+    --autoscale 2:2``), one epoch a batch: SIGKILL process 1 once epoch
+    ``CRASH_AFTER_EPOCH`` is durable; the supervisor relaunches it and
+    the output, through a sink that cuts back to its snapshot, must
+    equal the oracle with each station once.  Returns the fold
+    launches of the processes that reported."""
+    import signal
+
+    name = "cluster_brc_supervised_crash"
+    reports, out = _fresh_dirs(work, name)
+    db = work / "crash_db"
+    db.mkdir()
+    chunk = -(-size // (2 * CRASH_PART_BATCHES))
+    env = _cluster_env(work, reports, out, CLUSTER_FLOW="brc", CLUSTER_PARTS=2, CLUSTER_CHUNK=chunk,
+                       CLUSTER_PACE_S=CRASH_PACE_S, BYTEWAX_TPU_INGEST_TARGET_ROWS=0)
+    subprocess.run([sys.executable, "-m", "bytewax_tpu_torch.recovery", str(db), "2"],
+                   env=env, check=True, timeout=120)
+    cmd = [sys.executable, "-m", "bytewax_tpu_torch.run", f"{work / 'cluster_flows.py'}:flow",
+           "--autoscale", "2:2", "-r", str(db), "-s", "0", "-b", "0"]
+    t0 = time.perf_counter()
+    sup = subprocess.Popen(cmd, env=env, cwd=work, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True, start_new_session=True)
+    try:
+        deadline = time.monotonic() + CLUSTER_TIMEOUT_S
+        while True:
+            if sup.poll() is not None:
+                msg = f"{name}: the supervisor ended (exit {sup.returncode}) before the kill"
+                raise AssertionError(msg)
+            if time.monotonic() > deadline:
+                msg = f"{name}: epoch {CRASH_AFTER_EPOCH} was never durable"
+                raise AssertionError(msg)
+            fronts = _fronts(db, 1)
+            if fronts and max(f[1] for f in fronts) > CRASH_AFTER_EPOCH:
+                break
+            time.sleep(0.02)
+        victims = [p.name.split("-")[2] for p in reports.glob("started-1-*")]
+        if len(victims) != 1:
+            msg = f"{name}: {len(victims)} processes with id 1 started before the kill"
+            raise AssertionError(msg)
+        ex_at_kill = max(f[0] for f in fronts)
+        epoch_at_kill = max(f[1] for f in fronts) - 1
+        os.kill(int(victims[0]), signal.SIGKILL)
+        killed = time.perf_counter()
+        recovered = None
+        while recovered is None:
+            if time.monotonic() > deadline:
+                msg = f"{name}: process 1 never committed an epoch after the kill"
+                raise AssertionError(msg)
+            if any(ex > ex_at_kill and epoch > resume for ex, epoch, resume in _fronts(db, 1)):
+                recovered = time.perf_counter()
+            elif sup.poll() is not None:
+                break
+            else:
+                time.sleep(0.01)
+        stdout, stderr = sup.communicate(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        if sup.poll() is None:
+            os.killpg(sup.pid, signal.SIGKILL)
+            sup.wait()
+    seconds = time.perf_counter() - t0
+    if sup.returncode != 0:
+        msg = f"{name}: the supervisor exited {sup.returncode}\n{stderr[-3000:]}"
+        raise AssertionError(msg)
+    if recovered is None:
+        msg = f"{name}: the run ended with no epoch committed by the relaunched process"
+        raise AssertionError(msg)
+    relaunched = [p for p in reports.glob("started-1-*") if p.name.split("-")[2] != victims[0]]
+    if len(relaunched) != 1:
+        msg = f"{name}: {len(relaunched)} relaunches of process 1"
+        raise AssertionError(msg)
+    worst = _check_cluster_brc(name, out, want)
+    # The killed process wrote no report; the survivor and the
+    # relaunched process did.
+    reps = _cluster_reports(reports, name, 2)
+    launches = sum(r["fold_launches"] for r in reps)
+    _emit(
+        card,
+        "cluster",
+        run=name,
+        entry="python -m bytewax_tpu_torch.run --autoscale 2:2 -r db -s 0 -b 0",
+        processes=2,
+        lines=sum(w[0] for w in want.values()),
+        batches_per_partition=CRASH_PART_BATCHES,
+        pace_s=CRASH_PACE_S,
+        killed_after_epoch=epoch_at_kill,
+        seconds=seconds,
+        time_to_recover_s=recovered - killed,
+        fold_launches=launches,
+        max_mean_rel_err=worst,
+        exactly_once=True,
+        supervisor_relaunches=stderr.count("relaunch"),
+        **_child_fields(reps),
+    )
+    return launches
+
+
+def phase_cluster(card: dict) -> dict:
+    """Phase 10: clusters of processes on the one card (one temporary
+    directory, removed at the end); returns each run's launches of
+    each kernel."""
+    import tempfile
+
+    fold, scan = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as tmp:
+        work = Path(tmp)
+        (work / "cluster_flows.py").write_text(CLUSTER_FLOW_MODULE)
+        path = work / "measurements.txt"
+        stations, ids, deci = _brc_text(str(path), CLUSTER_LINES, INGEST_STATIONS, seed=7)
+        want = _brc_deci_oracle(stations, ids, deci)
+        size = path.stat().st_size
+        fold.update(_cluster_brc(card, work, want, CLUSTER_LINES, size))
+        scan["cluster_anomaly_p2"] = _cluster_anomaly(card, work)
+        fold["cluster_brc_supervised_crash"] = _cluster_crash(card, work, want, size)
+    return {"fold": fold, "scan": scan}
+
+
 def main() -> int:
     if not (HERE / "bytewax_tpu_torch" / "csrc" / "segment_fold.cu").exists():
         print(
@@ -2721,6 +3305,9 @@ def main() -> int:
     for path in ("brc", "windows", "rescale", "anomaly"):
         launches[f"recovery_{path}"] = recovered["fold"].get(path, 0)
         scan_launches[f"recovery_{path}"] = recovered["scan"].get(path, 0)
+    clustered = phase_cluster(card)
+    launches.update(clustered["fold"])
+    scan_launches.update(clustered["scan"])
 
     times = shapes["brc_413"]
     scan_times = scan["times"]["welford"]

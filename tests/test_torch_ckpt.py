@@ -1,15 +1,16 @@
 """Asynchronous incremental checkpoints through the torch port, held to
 the JAX package.
 
-The cases of ``tests/test_ckpt.py`` run through the port, all but the
-two-process cluster case (it waits for the port's multi-process
-cluster): delta and async commits against the synchronous checkpointer
+The cases of ``tests/test_ckpt.py`` run through the port: delta and
+async commits against the synchronous checkpointer
 and a running-sum oracle under the three entry points, crashes at the
 ``snapshot_seal`` site and on the committer lane replayed exactly once,
 the fault plan's random soak, latest-row-wins across cold keys,
 compaction, recovery through the residency tiers under a state budget,
 rescale of an uncompacted delta chain, the ``/status`` and
-``/healthz`` checkpoint payloads, and the rescale hint.
+``/healthz`` checkpoint payloads, the rescale hint, and a seal crash
+in a real two-process cluster (``python -m
+bytewax_tpu_torch.testing -p 2``, children on the CPU).
 
 Then the device tier through both packages (the JAX package on its
 single-device slot table, ``BYTEWAX_TPU_SHARD=0``): delta and async
@@ -27,6 +28,8 @@ import ast
 import os
 import pickle
 import sqlite3
+import subprocess
+import sys
 from datetime import timedelta
 from pathlib import Path
 
@@ -686,3 +689,123 @@ def test_device_tier_crash_replays_exactly_once(tmp_path, monkeypatch, kind, sit
     assert flight.RECORDER.counters.get("worker_restart_count", 0) == restarts + 1
     assert_device_out(kind, got["torch"], got["jax"])
     assert_device_out(kind, got["torch"], whole)
+
+
+# -- 2-process cluster: a seal crash under the supervisors -------------
+
+ROOT = Path(__file__).resolve().parent.parent
+
+#: ``tests/test_chaos.py``'s sequence flow, in the port.
+_SEQ_FLOW = """
+import os
+import time
+
+import bytewax_tpu_torch.operators as op
+from bytewax_tpu_torch.dataflow import Dataflow
+from bytewax_tpu_torch.connectors.files import FileSink
+from bytewax_tpu_torch.inputs import FixedPartitionedSource, StatefulSourcePartition
+
+
+class _Part(StatefulSourcePartition):
+    def __init__(self, name, resume):
+        self._name = name
+        self._i = resume or 0
+
+    def next_batch(self):
+        if self._i >= int(os.environ["CHAOS_CAP"]):
+            raise StopIteration()
+        self._i += 1
+        pace = float(os.environ.get("CHAOS_PACE_S", "0"))
+        if pace:
+            time.sleep(pace)
+        return [(f"{self._name}-{self._i % 4}", self._i)]
+
+    def snapshot(self):
+        return self._i
+
+
+class SeqSource(FixedPartitionedSource):
+    def list_parts(self):
+        return ["p0", "p1"]
+
+    def build_part(self, step_id, name, resume):
+        return _Part(name, resume)
+
+
+flow = Dataflow("chaos_df")
+s = op.input("inp", flow, SeqSource())
+s = op.stateful_map("sum", s, lambda st, v: ((st or 0) + v, (st or 0) + v))
+s = op.map("fmt", s, lambda kv: (kv[0], f"{kv[0]}={kv[1]}"))
+op.output("out", s, FileSink(OUT))
+"""
+
+
+def _cluster_env(extra):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["BYTEWAX_TPU_PLATFORM"] = "cpu"
+    env["BYTEWAX_TPU_ACCEL"] = "0"  # keep subprocess startup light
+    for k in (
+        "BYTEWAX_TPU_FAULTS",
+        "BYTEWAX_TPU_MAX_RESTARTS",
+        "BYTEWAX_TPU_CKPT_ASYNC",
+        "BYTEWAX_TPU_CKPT_DELTA",
+        "BYTEWAX_TPU_CKPT_COMPACT_EVERY",
+    ):
+        env.pop(k, None)
+    env.update(extra)
+    return env
+
+
+def _seq_cluster_oracle(cap):
+    want = []
+    for part in ("p0", "p1"):
+        sums = {}
+        for i in range(1, cap + 1):
+            key = f"{part}-{i % 4}"
+            sums[key] = sums.get(key, 0) + i
+            want.append(f"{key}={sums[key]}")
+    return sorted(want)
+
+
+def test_cluster_seal_crash_exactly_once(tmp_path):
+    """2-process cluster: a ``snapshot_seal`` crash on worker 0 with
+    async+delta on kills it between seal and commit; the peers'
+    supervisors restart, the mesh re-forms, and the completed run's
+    output equals the fault-free oracle exactly-once."""
+    cap = 30
+    out_path = tmp_path / "ckpt_seal_out.txt"
+    flow_py = tmp_path / "ckpt_seal.py"
+    flow_py.write_text(_SEQ_FLOW.replace("OUT", repr(str(out_path))))
+    db = tmp_path / "ckpt_seal_db"
+    db.mkdir()
+    env = _cluster_env(
+        {
+            "CHAOS_CAP": str(cap),
+            "BYTEWAX_TPU_CKPT_ASYNC": "1",
+            "BYTEWAX_TPU_CKPT_DELTA": "1",
+            "BYTEWAX_TPU_FAULTS": "snapshot_seal:crash:3:0:x1",
+            "BYTEWAX_TPU_MAX_RESTARTS": "3",
+            "BYTEWAX_TPU_RESTART_BACKOFF_S": "0.1",
+            "BYTEWAX_TPU_EPOCH_STALL_S": "15",
+            "CHAOS_PACE_S": "0.01",
+        }
+    )
+    subprocess.run(
+        [sys.executable, "-m", "bytewax_tpu_torch.recovery", str(db), "2"],
+        env=env,
+        check=True,
+        timeout=60,
+    )
+    res = subprocess.run(
+        [sys.executable, "-m", "bytewax_tpu_torch.testing", f"{flow_py}:flow", "-p", "2"]
+        + ["-r", str(db), "-s", "0", "-b", "0"],
+        env=env,
+        cwd=tmp_path,
+        capture_output=True,
+        text=True,
+        timeout=150,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "supervised restart" in res.stderr, res.stderr[-3000:]
+    assert sorted(out_path.read_text().split()) == _seq_cluster_oracle(cap)

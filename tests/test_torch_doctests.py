@@ -29,6 +29,7 @@ MODULES = [
     "bytewax_tpu_torch.ops.text",
     "bytewax_tpu_torch.outputs",
     "bytewax_tpu_torch.recovery",
+    "bytewax_tpu_torch.supervise",
     "bytewax_tpu_torch.testing",
     "bytewax_tpu_torch.tracing",
     "bytewax_tpu_torch.xla",

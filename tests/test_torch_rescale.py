@@ -1,15 +1,16 @@
 """Rescale on resume and live in-process reconfigure through the torch
 port, held to the JAX package.
 
-The cases of ``tests/test_rescale.py`` run through the port, all but
-the supervisor case and the two multi-process cluster cases (they wait
-for the port's multi-process cluster): the worker-count gate, route
-rewrites and ``exs`` provenance, route-scoped reads, whole rollback of
-a crashed migration, the delta-only migration, the spill tier's shared
-row format, seeded restart backoff, the rescale hint, resume at another
-lane count with keys in the spill tiers, and live reconfigure in one
-process (grow, shrink, refused without a store, a crashed migration
-retried).
+The cases of ``tests/test_rescale.py`` run through the port: the
+worker-count gate, route rewrites and ``exs`` provenance, route-scoped
+reads, whole rollback of a crashed migration, the delta-only migration,
+the spill tier's shared row format, seeded restart backoff, the rescale
+hint, resume at another lane count with keys in the spill tiers, live
+reconfigure in one process (grow, shrink, refused without a store, a
+crashed migration retried), a crashed resume migration retried under
+the in-process supervisor, and (``slow``, as in the reference) real
+clusters of 2 and 3 processes resized across a run with a crash in the
+migration, and refused without the opt-in.
 
 Then the device tier through both packages (the JAX package on its
 single-device slot table, ``BYTEWAX_TPU_SHARD=0``): a run of the
@@ -26,6 +27,8 @@ import os
 import pickle
 import random
 import sqlite3
+import subprocess
+import sys
 from datetime import timedelta
 from pathlib import Path
 
@@ -757,6 +760,61 @@ def test_live_reconfigure_refused_without_recovery_store(
     assert _canon(out) == _canon(_host_ema_oracle(items))
 
 
+def test_live_reconfigure_refused_under_distributed_flag(tmp_path, monkeypatch, caplog):
+    """With ``BYTEWAX_TPU_DISTRIBUTED=1`` a one-process cluster runs (the
+    knob is refused at startup only with more than one process), and a
+    live membership change is refused in the port's own terms (no
+    distributed device runtime yet): the request is consumed, no
+    reconfiguration happens, and the host-tier run completes with its
+    oracle's output."""
+    import logging
+
+    from bytewax_tpu_torch.engine.driver import request_reconfigure
+
+    monkeypatch.setenv("BYTEWAX_TPU_DISTRIBUTED", "1")
+    monkeypatch.setenv("BYTEWAX_TPU_ACCEL", "0")
+    monkeypatch.setenv("BYTEWAX_FLIGHT_RECORDER", "1")
+    flight.RECORDER.activate(True)
+    db = tmp_path / "db"
+    db.mkdir()
+    init_db_dir(db, 1)
+    inp = [(f"k{i % 4}", float(i)) for i in range(64)]
+    items = inp[:32] + [("reconf", -1.0)] + inp[32:]
+    fired = [False]
+
+    def trig(kv):
+        if not fired[0] and kv[1] == -1.0:
+            fired[0] = True
+            request_reconfigure([], workers_per_process=3)
+        return kv
+
+    out = []
+    flow = Dataflow("live_dist_df")
+    s = op.input("inp", flow, TestingSource(items, batch_size=4))
+    s = op.map("trig", s, trig)
+    summed = op.stateful_map("sum", s, lambda st, v: ((st or 0.0) + v,) * 2)
+    op.output("out", summed, TestingSink(out))
+    reconfs_before = flight.RECORDER.counters.get("reconfigure_count", 0)
+    with caplog.at_level(logging.WARNING):
+        status = cluster_main(
+            flow,
+            [],
+            0,
+            worker_count_per_proc=2,
+            epoch_interval=ZERO_TD,
+            recovery_config=RecoveryConfig(str(db)),
+        )
+    assert status is None and fired[0]
+    assert "no distributed device runtime" in caplog.text
+    assert "jax" not in caplog.text
+    assert flight.RECORDER.counters.get("reconfigure_count", 0) == reconfs_before
+    sums, want = {}, []
+    for k, v in items:
+        sums[k] = sums.get(k, 0.0) + v
+        want.append((k, sums[k]))
+    assert sorted(out) == sorted(want)
+
+
 def test_live_reconfigure_migration_crash_retries_in_process(
     tmp_path, monkeypatch
 ):
@@ -814,6 +872,49 @@ def test_live_reconfigure_migration_crash_retries_in_process(
         == restarts_before + 1
     )
     assert _canon(out) == _canon(_host_ema_oracle(items))
+
+
+def test_rescale_resume_migration_crash_retries_under_supervisor(
+    tmp_path, monkeypatch
+):
+    # End-to-end through the real fault site IN-PROCESS: the first
+    # rescale attempt crashes mid-migration; the supervisor re-enters
+    # at run startup, the rolled-back migration re-runs, and the
+    # resumed output is exactly-once.
+    inp = [(f"k{i % 4}", float(i)) for i in range(64)]
+    half = len(inp) // 2
+    db = tmp_path / "db"
+    db.mkdir()
+    init_db_dir(db, 1)
+    rc = RecoveryConfig(str(db))
+    out = []
+    _entry(2)(
+        _ema_flow(inp[:half] + [TestingSource.EOF()] + inp[half:], out),
+        epoch_interval=ZERO_TD,
+        recovery_config=rc,
+    )
+
+    monkeypatch.setenv("BYTEWAX_TPU_RESCALE", "1")
+    monkeypatch.setenv(
+        "BYTEWAX_TPU_FAULTS", "rescale_migrate:crash:*:x1"
+    )
+    monkeypatch.setenv("BYTEWAX_TPU_MAX_RESTARTS", "2")
+    monkeypatch.setenv("BYTEWAX_TPU_RESTART_BACKOFF_S", "0.05")
+    faults.reset()
+    restarts_before = flight.RECORDER.counters.get(
+        "worker_restart_count", 0
+    )
+    out2 = []
+    _entry(3)(
+        _ema_flow(inp[:half] + [TestingSource.EOF()] + inp[half:], out2),
+        epoch_interval=ZERO_TD,
+        recovery_config=rc,
+    )
+    assert (
+        flight.RECORDER.counters.get("worker_restart_count", 0)
+        == restarts_before + 1
+    )
+    assert _canon(out2) == _canon(_host_ema_oracle(inp)[half:])
 
 
 # -- the device tier, held to the JAX package ---------------------------------
@@ -890,3 +991,198 @@ def test_rescale_migration_stays_linear_in_the_keys(tmp_path):
             con.close()
         assert routes["port"] == routes["ref"]
     assert steps[4000] < 5 * steps[1000], steps
+
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+# -- subprocess clusters: 2<->3 processes under injected crashes -------
+
+
+def _cluster_env(extra=None, accel=False):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["BYTEWAX_TPU_PLATFORM"] = "cpu"
+    if not accel:
+        env["BYTEWAX_TPU_ACCEL"] = "0"  # keep subprocess startup light
+    for k in (
+        "BYTEWAX_TPU_FAULTS",
+        "BYTEWAX_TPU_MAX_RESTARTS",
+        "BYTEWAX_TPU_RESCALE",
+        "BYTEWAX_TPU_STATE_BUDGET",
+        "BYTEWAX_TPU_SPILL_DIR",
+        "BYTEWAX_TPU_HOST_STATE_BUDGET",
+    ):
+        env.pop(k, None)
+    if extra:
+        env.update(extra)
+    return env
+
+
+_CLUSTER_SEQ_FLOW = '''
+import os
+
+import bytewax_tpu_torch.operators as op
+from bytewax_tpu_torch.dataflow import Dataflow
+from bytewax_tpu_torch.connectors.files import FileSink
+from bytewax_tpu_torch.inputs import FixedPartitionedSource, StatefulSourcePartition
+
+
+class _Part(StatefulSourcePartition):
+    def __init__(self, name, resume):
+        self._name = name
+        self._i = resume or 0
+
+    def next_batch(self):
+        if self._i >= int(os.environ["RESCALE_CAP"]):
+            raise StopIteration()
+        self._i += 1
+        return [(f"{{self._name}}-{{self._i % 8}}", float(self._i % 13))]
+
+    def snapshot(self):
+        return self._i
+
+
+class SeqSource(FixedPartitionedSource):
+    def list_parts(self):
+        return ["p0", "p1"]
+
+    def build_part(self, step_id, name, resume):
+        return _Part(name, resume)
+
+
+flow = Dataflow("rescale_cluster_df")
+s = op.input("inp", flow, SeqSource())
+s = op.stateful_map("ema", s, lambda st, v: (
+    (v if st is None else st + 0.3 * (v - st),) * 2
+))
+s = op.map("fmt", s, lambda kv: (kv[0], f"{{kv[0]}}={{kv[1]:.3f}}"))
+op.output("out", s, FileSink({out_path!r}))
+'''
+
+
+def _spawn_cluster(tmp_path, name, procs, cap, db, out_path, extra_env):
+    flow_py = tmp_path / f"{name}.py"
+    flow_py.write_text(_CLUSTER_SEQ_FLOW.format(out_path=str(out_path)))
+    env = _cluster_env(extra_env)
+    env["RESCALE_CAP"] = str(cap)
+    cmd = [
+        sys.executable,
+        "-m",
+        "bytewax_tpu_torch.testing",
+        f"{flow_py}:flow",
+        "-p",
+        str(procs),
+        "-r",
+        str(db),
+        "-s",
+        "0",
+        "-b",
+        "0",
+    ]
+    if extra_env and extra_env.get("BYTEWAX_TPU_RESCALE") == "1":
+        cmd.append("--rescale")
+    return subprocess.run(
+        cmd,
+        env=env,
+        cwd=tmp_path,
+        capture_output=True,
+        text=True,
+        timeout=240,
+    )
+
+
+def _cluster_seq_oracle(cap):
+    want = []
+    for part in ("p0", "p1"):
+        emas = {}
+        for i in range(1, cap + 1):
+            key = f"{part}-{i % 8}"
+            v = float(i % 13)
+            prev = emas.get(key)
+            emas[key] = (
+                v if prev is None else prev + 0.3 * (v - prev)
+            )
+            want.append(f"{key}={emas[key]:.3f}")
+    return sorted(want)
+
+
+def _init_db(tmp_path, name):
+    db = tmp_path / f"{name}_db"
+    db.mkdir()
+    subprocess.run(
+        [sys.executable, "-m", "bytewax_tpu_torch.recovery", str(db), "2"],
+        env=_cluster_env(),
+        check=True,
+        timeout=60,
+    )
+    return db
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize(
+    "p_from,p_to", [(2, 3), (3, 2)], ids=["grow-2to3", "shrink-3to2"]
+)
+def test_cluster_rescale_under_injected_migration_crash(
+    tmp_path, p_from, p_to
+):
+    # A real multi-process cluster stops at N processes (EOF at half
+    # the input); the relaunch at M processes takes an injected CRASH
+    # at the pinned rescale_migrate site on proc 0 (mid-migration,
+    # inside the store transaction).  The supervisors restart the
+    # whole cluster, the rolled-back migration re-runs, and the final
+    # output is byte-identical to an uninterrupted run — exactly-once
+    # across both the resize and the crash.
+    name = f"resc_{p_from}to{p_to}"
+    cap = 40
+    db = _init_db(tmp_path, name)
+    out = tmp_path / f"{name}_out.txt"
+
+    res = _spawn_cluster(
+        tmp_path, name, p_from, cap // 2, db, out, {}
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+
+    res = _spawn_cluster(
+        tmp_path,
+        name,
+        p_to,
+        cap,
+        db,
+        out,
+        {
+            "BYTEWAX_TPU_RESCALE": "1",
+            "BYTEWAX_TPU_FAULTS": "rescale_migrate:crash:*:0:x1",
+            "BYTEWAX_TPU_MAX_RESTARTS": "3",
+            "BYTEWAX_TPU_RESTART_BACKOFF_S": "0.1",
+        },
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "supervised restart" in res.stderr, res.stderr[-3000:]
+    assert "rescaled recovery store" in res.stderr, res.stderr[-3000:]
+    assert sorted(out.read_text().split()) == _cluster_seq_oracle(cap)
+
+
+@pytest.mark.slow
+def test_cluster_rescale_refused_without_flag(tmp_path):
+    # The same relaunch WITHOUT the opt-in fails fast on every
+    # process with the typed mismatch error and consumes nothing.
+    name = "refuse"
+    cap = 20
+    db = _init_db(tmp_path, name)
+    out = tmp_path / f"{name}_out.txt"
+    res = _spawn_cluster(tmp_path, name, 2, cap // 2, db, out, {})
+    assert res.returncode == 0, res.stderr[-3000:]
+    before = sorted(out.read_text().split())
+
+    res = _spawn_cluster(tmp_path, name, 3, cap, db, out, {})
+    assert res.returncode != 0
+    assert "WorkerCountMismatchError" in res.stderr
+    assert sorted(out.read_text().split()) == before
+
+    # And with it, the run completes against the oracle.
+    res = _spawn_cluster(
+        tmp_path, name, 3, cap, db, out, {"BYTEWAX_TPU_RESCALE": "1"}
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert sorted(out.read_text().split()) == _cluster_seq_oracle(cap)
