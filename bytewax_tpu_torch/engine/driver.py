@@ -1519,8 +1519,9 @@ class _StatefulBatchRt(_OpRt):
                     make_agg_state,
                 )
 
-                # Keyed aggregation: a single-device slot table (the
-                # port's one tier).
+                # Keyed aggregation: a mesh-sharded slot table when
+                # this process has more than one device, else a
+                # single-device one.
                 self.agg = make_agg_state(spec.kind, driver=driver)
             elif isinstance(spec, WindowAccelSpec):
                 # Sliding/tumbling or session device windower, per

@@ -360,10 +360,13 @@ def device_footprint(state: Any) -> Tuple[int, int]:
             if isinstance(m, dict):
                 keys = max(keys, len(m))
         fields = getattr(obj, "_fields", None)
-        if isinstance(fields, dict) and id(fields) not in field_ids:
-            field_ids.add(id(fields))
-            for arr in fields.values():
-                nbytes += int(getattr(arr, "nbytes", 0) or 0)
+        # One dict of field tensors, or one per shard (sharded tiers).
+        blocks = fields if isinstance(fields, list) else [fields]
+        for block in blocks:
+            if isinstance(block, dict) and id(block) not in field_ids:
+                field_ids.add(id(block))
+                for arr in block.values():
+                    nbytes += int(getattr(arr, "nbytes", 0) or 0)
         for attr in ("agg", "_inner"):
             walk(getattr(obj, attr, None), depth + 1)
 

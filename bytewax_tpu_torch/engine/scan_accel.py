@@ -27,7 +27,7 @@ from bytewax_tpu_torch.engine.arrays import ArrayBatch, factorize_keys
 from bytewax_tpu_torch.engine.xla import NonNumericValues
 from bytewax_tpu_torch.ops.scan import ScanKind
 
-__all__ = ["ScanAccelSpec", "DeviceScanState", "ScanEmit"]
+__all__ = ["ScanAccelSpec", "DeviceScanState", "ScanEmit", "ScanUpdates"]
 
 _MIN_CAPACITY = 1024
 
@@ -109,7 +109,49 @@ class ScanEmit:
         )
 
 
-class DeviceScanState:
+class ScanUpdates:
+    """The scan-state update surface, shared by the single-device and
+    mesh-sharded tiers.  Hosts provide ``alloc(key) -> id`` and
+    ``scan_rows(ids, values) -> outs``, the per-row output columns in
+    row order (both callers feed pre-grouped rows, so row order IS the
+    grouped emission order)."""
+
+    def update_grouped(
+        self, uniq: List[str], lens: List[int], values: np.ndarray
+    ) -> Tuple[np.ndarray, ...]:
+        """Fold pre-grouped rows in: ``values`` holds each key's rows
+        contiguously (group g = ``uniq[g]``, ``lens[g]`` rows);
+        returns the per-row output columns in the same order."""
+        _require_numeric(values)
+        id_of = np.fromiter(
+            (self.alloc(k) for k in uniq), dtype=np.int32, count=len(uniq)
+        )
+        return self.scan_rows(np.repeat(id_of, lens), values)
+
+    def update(
+        self, keys: np.ndarray, values: np.ndarray
+    ) -> Tuple[List[str], ScanEmit]:
+        """Fold ``(key, value)`` rows in; returns the unique keys
+        touched plus the per-row outputs in grouped emission order."""
+        keys = np.asarray(keys)
+        values = np.asarray(values)
+        _require_numeric(values)
+        codes, uniq = factorize_keys(keys)
+        uniq_list = [str(k) for k in uniq.tolist()]
+        id_of = np.fromiter(
+            (self.alloc(k) for k in uniq_list),
+            dtype=np.int32,
+            count=len(uniq_list),
+        )
+        order = np.argsort(codes, kind="stable")
+        codes_s = codes[order]
+        vals_s = values[order]
+        outs = self.scan_rows(id_of[codes_s], vals_s)
+        emit = ScanEmit(keys[order], vals_s, outs, codes_s, uniq_list)
+        return uniq_list, emit
+
+
+class DeviceScanState(ScanUpdates):
     """Slot-table scan state for one lowered ``stateful_map`` step, on
     ``device`` (default: :func:`bytewax_tpu_torch.utils.device`).
 
@@ -209,40 +251,6 @@ class DeviceScanState:
         return [k for k in self.slot_keys if k is not None]
 
     # -- updates -----------------------------------------------------------
-
-    def update_grouped(
-        self, uniq: List[str], lens: List[int], values: np.ndarray
-    ) -> Tuple[np.ndarray, ...]:
-        """Fold pre-grouped rows in: ``values`` holds each key's rows
-        contiguously (group g = ``uniq[g]``, ``lens[g]`` rows);
-        returns the per-row output columns in the same order."""
-        _require_numeric(values)
-        id_of = np.fromiter(
-            (self.alloc(k) for k in uniq), dtype=np.int32, count=len(uniq)
-        )
-        return self.scan_rows(np.repeat(id_of, lens), values)
-
-    def update(
-        self, keys: np.ndarray, values: np.ndarray
-    ) -> Tuple[List[str], ScanEmit]:
-        """Fold ``(key, value)`` rows in; returns the unique keys
-        touched plus the per-row outputs in grouped emission order."""
-        keys = np.asarray(keys)
-        values = np.asarray(values)
-        _require_numeric(values)
-        codes, uniq = factorize_keys(keys)
-        uniq_list = [str(k) for k in uniq.tolist()]
-        id_of = np.fromiter(
-            (self.alloc(k) for k in uniq_list),
-            dtype=np.int32,
-            count=len(uniq_list),
-        )
-        order = np.argsort(codes, kind="stable")
-        codes_s = codes[order]
-        vals_s = values[order]
-        outs = self.scan_rows(id_of[codes_s], vals_s)
-        emit = ScanEmit(keys[order], vals_s, outs, codes_s, uniq_list)
-        return uniq_list, emit
 
     def scan_rows(
         self, row_slots: np.ndarray, values: np.ndarray

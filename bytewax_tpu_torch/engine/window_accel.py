@@ -144,7 +144,7 @@ class DeviceWindowAggState:
         from bytewax_tpu_torch.engine.sharded_state import make_agg_state
 
         self.spec = spec
-        # The single-device slot table (the port's one tier): the
+        # The single-device slot table, or the mesh-sharded one: the
         # window bookkeeping (watermarks, open/close) stays host-side;
         # the per-(key, window) fold is the segment-fold kernel's
         # (slot, value) row source, through ``update_ids``.

@@ -5,10 +5,20 @@ from typing import Callable, Iterable, List, Tuple, TypeVar
 
 X = TypeVar("X")
 
-__all__ = ["PLATFORMS", "device", "force_platform", "partition"]
+__all__ = [
+    "PLATFORMS",
+    "VIRTUAL_DEVICES_ENV",
+    "device",
+    "force_cpu_mesh",
+    "force_platform",
+    "partition",
+]
 
 #: Accepted values of ``BYTEWAX_TPU_PLATFORM`` (unset means ``cuda``).
 PLATFORMS = ("cpu", "cuda", "gpu")
+#: The variable that asks for a mesh of one repeated device (read by
+#: :func:`bytewax_tpu_torch.parallel.mesh.local_devices` alone).
+VIRTUAL_DEVICES_ENV = "BYTEWAX_TPU_VIRTUAL_DEVICES"
 
 
 def _check(platform: str) -> None:
@@ -32,6 +42,23 @@ def force_platform(platform: str) -> None:
     """
     _check(platform)
     os.environ["BYTEWAX_TPU_PLATFORM"] = platform
+
+
+def force_cpu_mesh(n_devices: int) -> None:
+    """Run the device tier on the CPU over a mesh of ``n_devices``
+    entries, all the CPU: the counterpart of the JAX package's function
+    of this name, which gives jax that many virtual CPU devices.
+
+    Sets ``BYTEWAX_TPU_PLATFORM=cpu`` and ``BYTEWAX_TPU_VIRTUAL_DEVICES``
+    (the platform's device, repeated ``n_devices`` times; with the
+    platform left on ``cuda`` the same variable repeats ``cuda:0``).
+    Keyed state then shards over that many entries under
+    ``BYTEWAX_TPU_SHARD=auto`` (the default)."""
+    if n_devices < 1:
+        msg = f"a mesh needs at least one device, not {n_devices}"
+        raise ValueError(msg)
+    force_platform("cpu")
+    os.environ[VIRTUAL_DEVICES_ENV] = str(n_devices)
 
 
 def device():

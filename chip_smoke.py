@@ -81,15 +81,33 @@ Phases, each of which raises on any failure:
    recovery store under ``run --autoscale 2:2``, process 1 SIGKILLed
    once epoch 8 is durable, relaunched by the supervisor, exactly once
    against the oracle, with the time to recover;
-11. report — one ``{"kernels": [...]}`` line.
+11. sharded — the per-process mesh-sharded tier: the shard-bucketing
+   kernel held against its plain version exactly (2^20 rows in 2, 4
+   and 8 source blocks and shards; keys uniform over 10,000 and over
+   2^20, and one key on half the rows; a capacity at the true bucket
+   maximum and at half of it; the fold's lanes and the scan's) and
+   timed at the sharded flows' shapes; then ``brc_flow_columnar``
+   (8·2^20 rows, 10,000 stations), one 2^20-row batch with one station
+   on half its rows, tumbling ``stats_window`` (phase 6's data, 8
+   batches) and ``anomaly_flow`` (phase 8's 10,000 sensors) through
+   ``run_main`` with ``BYTEWAX_TPU_SHARD=4`` over 4 shards of
+   ``cuda:0`` and again on the single-device tier, each against its
+   oracle and the two tiers against each other; each ``sharded`` line
+   carries both tiers' rows/s, the launches of the three kernels, the
+   host's bucket-sizing seconds and the ledger phases.  The same flows
+   run over every card where there is more than one; one card prints
+   a line saying the mesh of distinct cards was not reached;
+12. report — one ``{"kernels": [...]}`` line.
 
 Phases 5 and 6 hold their output against a float64 numpy oracle of
 the same semantics: counts, min and max exactly, means within 1e-5 of
 the rows' mean absolute value.  Every phase that drives a flow resets
 both kernels' launch counts just before ``run_main`` and fails if the
-run launched its kernel no time (phases 8 to 10 also fail on any step
+run launched its kernel no time (phases 8 to 11 also fail on any step
 demoted to the host tier; phase 10 on any process that is not on
-``cuda:0``, launched its kernel no time, or exited non-zero).
+``cuda:0``, launched its kernel no time, or exited non-zero; phase 11
+on a sharded run that launched the shard-bucketing kernel no time, or
+a single-device run that launched it at all).
 
 Every result line is JSON and carries the card's name and power
 limit.  The last line is ``{"ok": true, "device": {...}}``.
@@ -717,12 +735,13 @@ def _run_flow(flow, entry=None, expect=(), **kwargs) -> dict:
     """``run_main`` (or ``entry``) with every kernel count set to 0
     just before it; returns wall seconds, each kernel's launches
     (``launches`` for the segment fold, ``scan_launches`` for the
-    segmented scan) and the engine's phase seconds.  An exception of a
+    segmented scan, ``bucket_launches`` for the shard bucketing) and the
+    engine's phase seconds.  An exception of a
     type in ``expect`` ends the run; its type's name is ``raised``."""
     import torch
 
     from bytewax_tpu_torch.engine import flight
-    from bytewax_tpu_torch.ops import fold_kernel, scan_kernel
+    from bytewax_tpu_torch.ops import bucket_kernel, fold_kernel, scan_kernel
     from bytewax_tpu_torch.testing import run_main
 
     phases_before = dict(flight.RECORDER.phase_totals)
@@ -730,6 +749,7 @@ def _run_flow(flow, entry=None, expect=(), **kwargs) -> dict:
     torch.cuda.synchronize()
     fold_kernel.launches = 0
     scan_kernel.launches = 0
+    bucket_kernel.launches = 0
     raised = None
     t0 = time.perf_counter()
     try:
@@ -743,6 +763,7 @@ def _run_flow(flow, entry=None, expect=(), **kwargs) -> dict:
         "seconds": seconds,
         "launches": fold_kernel.launches,
         "scan_launches": scan_kernel.launches,
+        "bucket_launches": bucket_kernel.launches,
         "phase_seconds": {
             name: total - phases_before.get(name, 0.0)
             for name, total in flight.RECORDER.phase_totals.items()
@@ -1295,7 +1316,11 @@ def _window_oracle(name, ids, ts, vals, n_keys: int):
     return out
 
 
-def _window_case(card: dict, name: str, n_batches: int, n: int, n_keys: int, seed: int):
+def _window_case(card: dict, name: str, n_batches: int, n: int, n_keys: int, seed: int,
+                 phase: str = "windows") -> dict:
+    """One windowed flow through ``run_main``, checked against its
+    oracle; emits a ``phase`` line and returns the run (``_run_flow``'s
+    record) with the state, the output ``got`` and the oracle ``want``."""
     from datetime import datetime, timedelta, timezone
 
     import numpy as np
@@ -1455,7 +1480,7 @@ def _window_case(card: dict, name: str, n_batches: int, n: int, n_keys: int, see
     state = states[0]
     _emit(
         card,
-        "windows",
+        phase,
         case=name,
         rows=n * n_batches,
         batches=n_batches,
@@ -1482,13 +1507,13 @@ def _window_case(card: dict, name: str, n_batches: int, n: int, n_keys: int, see
         d2h_bytes=run["counters"].get("device_transfer_bytes_d2h", 0),
         phase_seconds=run["phase_seconds"],
     )
-    return run["launches"]
+    return dict(run, state=state, got=got, want=want)
 
 
 def phase_windows(card: dict, n: int, n_keys: int, cases) -> dict:
     """The three windowed cases; returns their kernel launches."""
     return {
-        name: _window_case(card, name, n_batches, n, n_keys, seed=10 + i)
+        name: _window_case(card, name, n_batches, n, n_keys, seed=10 + i)["launches"]
         for i, (name, n_batches) in enumerate(cases)
     }
 
@@ -1777,7 +1802,19 @@ def _time_scan(card: dict, kind, n: int, n_keys: int, capacity: int, fold_call) 
 # -- phase 8 -----------------------------------------------------------------
 
 
+_ANOMALY_DATA = {}
+
+
 def _anomaly_data(n_batches: int, n: int, n_keys: int, seed: int):
+    """:func:`_make_anomaly_data`, made once for each set of arguments
+    (phases 8, 10 and 11 read the same sensors)."""
+    args = (n_batches, n, n_keys, seed)
+    if args not in _ANOMALY_DATA:
+        _ANOMALY_DATA[args] = _make_anomaly_data(*args)
+    return _ANOMALY_DATA[args]
+
+
+def _make_anomaly_data(n_batches: int, n: int, n_keys: int, seed: int):
     """Sensor readings and their float64 oracle, made together.
 
     Each batch holds ``n`` rows of sensors drawn uniformly from
@@ -1971,23 +2008,27 @@ def _recording_device_states():
     return states, undo
 
 
-#: Where phase 8 splits the time of a run: (module, owner, attribute).
+#: Where phases 8 and 11 split the time of a run: (module, owner,
+#: attribute, label).
 _SPLITS = (
-    ("bytewax_tpu_torch.engine.scan_accel", None, "factorize_keys"),
-    ("bytewax_tpu_torch.engine.scan_accel", "ScanEmit", "items"),
-    ("bytewax_tpu_torch.engine.scan_accel", "DeviceScanState", "scan_rows"),
-    ("bytewax_tpu_torch.engine.infer", None, "extract_features"),
-    ("bytewax_tpu_torch.engine.infer", "DeviceInferState", "score_rows"),
+    ("bytewax_tpu_torch.engine.scan_accel", None, "factorize_keys", "factorize_keys"),
+    ("bytewax_tpu_torch.engine.scan_accel", "ScanEmit", "items", "items"),
+    ("bytewax_tpu_torch.engine.scan_accel", "DeviceScanState", "scan_rows", "scan_rows"),
+    ("bytewax_tpu_torch.engine.sharded_state", "ShardedScanState", "scan_rows", "sharded_scan_rows"),
+    ("bytewax_tpu_torch.engine.sharded_state", "_ShardedSlots", "_sizing", "sizing"),
+    ("bytewax_tpu_torch.engine.infer", None, "extract_features", "extract_features"),
+    ("bytewax_tpu_torch.engine.infer", "DeviceInferState", "score_rows", "score_rows"),
 )
 
 
 def _scan_flow_case(card: dict, name: str, flow_of, data, kind: str, rows: slice,
-                    vocab_index, kernel_ms=None) -> dict:
+                    vocab_index, kernel_ms=None, phase: str = "anomaly") -> dict:
     """Run one flow of phase 8 and check it: its one device state on
     the card (a scan state, or the infer step's params), launches of
     the scan kernel (scan flows: ``kernel_ms`` is the instance's time
-    per call), no demotion, output against the oracle.  The line
-    carries the seconds spent in each function of ``_SPLITS``."""
+    per call), no demotion, output against the oracle.  The ``phase``
+    line carries the seconds spent in each function of ``_SPLITS``; the
+    returned run carries the state and the output ``out``."""
     import importlib
 
     from bytewax_tpu_torch.testing import TestingSink
@@ -1996,11 +2037,11 @@ def _scan_flow_case(card: dict, name: str, flow_of, data, kind: str, rows: slice
     demoted_before = _demotions()
     states, undo = _recording_device_states()
     saved, timers = [], {}
-    for modname, owner, attr in _SPLITS:
+    for modname, owner, attr, label in _SPLITS:
         obj = importlib.import_module(modname)
         obj = getattr(obj, owner) if owner else obj
         saved.append((obj, attr, getattr(obj, attr)))
-        timers[attr] = _Timed(obj, attr)
+        timers[label] = _Timed(obj, attr)
     try:
         run = _run_flow(flow_of(TestingSink(out)))
     finally:
@@ -2021,7 +2062,7 @@ def _scan_flow_case(card: dict, name: str, flow_of, data, kind: str, rows: slice
     n = rows.stop - rows.start
     _emit(
         card,
-        "anomaly",
+        phase,
         flow=name,
         rows=n,
         seconds=run["seconds"],
@@ -2040,7 +2081,11 @@ def _scan_flow_case(card: dict, name: str, flow_of, data, kind: str, rows: slice
         counters=run["counters"],
         **checked,
     )
-    return run
+    split = {
+        "seconds": {a: t.seconds for a, t in timers.items() if t.calls},
+        "calls": {a: t.calls for a, t in timers.items() if t.calls},
+    }
+    return dict(run, state=states[0], out=out, split=split)
 
 
 def phase_anomaly(card: dict, n: int, n_keys: int, times: dict) -> dict:
@@ -3245,6 +3290,380 @@ def phase_cluster(card: dict) -> dict:
     return {"fold": fold, "scan": scan}
 
 
+# -- phase 11 ----------------------------------------------------------------
+
+
+#: Shards of the sharded tier's flows, and of the kernel's main shape.
+SHARDS = 4
+SHARD_COUNTS = (2, 4, 8)
+SHARD_KERNEL_ROWS = 1 << 20
+SHARD_DISTS = ("uniform_10000", "uniform_2^20", "hot_half")
+SHARD_BRC_BATCHES = 8
+SHARD_WINDOW_BATCHES = 8
+#: The shard-bucketing kernel's passes, as the profiler lists them.
+BUCKET_KERNELS = ("k_count", "k_offsets", "k_pad", "k_place")
+
+
+def _bucket_inputs(dist: str, n: int, n_shards: int, seed: int, padded: bool = True):
+    """Wire key ids and float32 values of one batch cut into
+    ``n_shards`` source blocks on the card, with the valid mask (a
+    padded tail, as the sharded states send); keys uniform over 10,000
+    or 2^20, or one key on half the rows."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    span = 1 << 20 if dist == "uniform_2^20" else 10_000
+    keys = rng.randint(0, span, size=n).astype(np.int32)
+    if dist == "hot_half":
+        keys[rng.rand(n) < 0.5] = 4321
+    vals = rng.randn(n).astype(np.float32)
+    valid = np.ones(n, dtype=bool)
+    if padded:
+        valid[n - n // 16 :] = False
+    r = n // n_shards
+    lanes = [
+        torch.from_numpy(keys).to(DEV).view(n_shards, r),
+        torch.from_numpy(vals).to(DEV).view(torch.int32).view(n_shards, r),
+    ]
+    return lanes, torch.from_numpy(valid).to(DEV).view(n_shards, r)
+
+
+def _bucket_bound_ms(lanes, valid, n_out: int, n_shards: int, capacity: int) -> float:
+    """Bytes over the card's memory rate: every lane and the mask read
+    once, every output position, count and drop written once."""
+    blocks = lanes[0].shape[0]
+    read = sum(lane.numel() * 4 for lane in lanes) + valid.numel()
+    written = (n_out * n_shards * capacity + n_shards + 1) * blocks * 4
+    return (read + written) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_shard_kernel(card: dict, n: int) -> dict:
+    """Phase 11 (a): hold the shard-bucketing kernel against its plain
+    version on the card, exactly: 2^20 rows in 2, 4 and 8 source blocks
+    and shards, keys uniform over 10,000 and 2^20 and one hot key on
+    half the rows, a capacity at the true bucket maximum and at half of
+    it (rows dropped), the fold's lanes and the scan's (with the
+    position lane); then time it at the sharded flows' shapes."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from bytewax_tpu_torch.parallel import exchange
+
+    cases = 0
+    worst = 0
+    for n_shards in SHARD_COUNTS:
+        for i, dist in enumerate(SHARD_DISTS):
+            lanes, valid = _bucket_inputs(dist, n, n_shards, seed=30 + i)
+            _o, counts, _d = exchange.bucket_blocks_plain(lanes[:1], n_shards, n // n_shards, valid=valid)
+            top = int(counts.max())
+            for capacity in (top, top // 2):
+                for flags in (exchange.DECODE, exchange.DECODE | exchange.POS):
+                    kw = dict(valid=valid, flags=flags, pad0=(1 << 20) - 1, pos_pad=n)
+                    got = exchange.bucket_blocks(lanes, n_shards, capacity, **kw)
+                    want = exchange.bucket_blocks_plain(lanes, n_shards, capacity, **kw)
+                    torch.cuda.synchronize()
+                    for g, w, what in zip(got, want, ("buckets", "counts", "dropped")):
+                        if g.shape != w.shape:
+                            msg = f"shard_bucket {dist}/{n_shards}: {what} {tuple(g.shape)} != {tuple(w.shape)}"
+                            raise AssertionError(msg)
+                        worst = max(worst, int((g.long() - w.long()).abs().max()) if g.numel() else 0)
+                    if worst != 0:
+                        msg = f"shard_bucket {dist}/{n_shards}/cap {capacity}: differs by {worst}"
+                        raise AssertionError(msg)
+                    if (int(got[2].sum()) > 0) != (capacity < top):
+                        msg = f"shard_bucket {dist}/{n_shards}: dropped {got[2].tolist()} at cap {capacity}"
+                        raise AssertionError(msg)
+                    cases += 1
+    _emit(card, "shard_kernel", rows=n, cases=cases, shards=list(SHARD_COUNTS),
+          dists=list(SHARD_DISTS), max_abs_err=worst)
+
+    times = {}
+    for label, n_keys, flags in (
+        ("brc_10000", 10_000, exchange.DECODE),
+        ("anomaly_10000", 10_000, exchange.DECODE | exchange.POS),
+    ):
+        lanes, valid = _bucket_inputs("uniform_10000", n, SHARDS, seed=40, padded=False)
+        keys = lanes[0].reshape(-1).cpu().numpy()
+        r = n // SHARDS
+        pairs = np.bincount((np.arange(n) // r) * SHARDS + keys % SHARDS, minlength=SHARDS * SHARDS)
+        capacity = 1 << max(4, math.ceil(math.log2(int(pairs.max()))))
+        kw = dict(valid=valid, flags=flags, pad0=(1 << 20) - 1, pos_pad=n)
+
+        def call(lanes=lanes, capacity=capacity, kw=kw):
+            exchange.bucket_blocks(lanes, SHARDS, capacity, **kw)
+
+        def plain(lanes=lanes, capacity=capacity, kw=kw):
+            exchange.bucket_blocks_plain(lanes, SHARDS, capacity, **kw)
+
+        prof = _profiled(call, 200, names=BUCKET_KERNELS)
+        ms = None if prof["ms"] is None else prof["ms"] * prof["launches_per_call"]
+        n_out = 3 if flags & exchange.POS else 2
+        t = {
+            "ms": ms,
+            "graph_ms": _graph_ms(call),
+            "host_us": _host_us(call, 200),
+            "plain_ms": _time_ms(plain, 20),
+            "bound_ms": _bucket_bound_ms(lanes, valid, n_out, SHARDS, capacity),
+            "bound_by": "bytes",
+            "library_ms": None,
+        }
+        times[label] = t
+        _emit(card, "shard_kernel_time", shape=label, rows=n, shards=SHARDS, keys=n_keys,
+              capacity=capacity, lanes_out=n_out, passes_per_call=prof["launches_per_call"],
+              host_launches_per_call=prof["host_launches_per_call"], **t)
+    return {"max_abs_err": worst, "times": times}
+
+
+class _Tier:
+    """The environment of one tier of a phase-11 run: ``sharded`` over
+    ``SHARDS`` shards of ``cuda:0`` (``mesh="cuda:0"``) or over every
+    card (``mesh="cards"``), or ``single`` (``BYTEWAX_TPU_SHARD=0``)."""
+
+    NAMES = ("BYTEWAX_TPU_SHARD", "BYTEWAX_TPU_VIRTUAL_DEVICES")
+
+    def __init__(self, tier: str, mesh: str):
+        self.tier, self.mesh = tier, mesh
+
+    def __enter__(self):
+        self.saved = {name: os.environ.get(name) for name in self.NAMES}
+        os.environ.pop("BYTEWAX_TPU_VIRTUAL_DEVICES", None)
+        if self.tier == "single":
+            os.environ["BYTEWAX_TPU_SHARD"] = "0"
+        elif self.mesh == "cards":
+            os.environ["BYTEWAX_TPU_SHARD"] = "auto"
+        else:
+            os.environ["BYTEWAX_TPU_SHARD"] = str(SHARDS)
+            os.environ["BYTEWAX_TPU_VIRTUAL_DEVICES"] = str(SHARDS)
+        return self
+
+    def __exit__(self, *exc):
+        for name, value in self.saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def _check_tier(name: str, tier: str, state, run: dict, scan: bool) -> None:
+    """The state a run built is the tier's, on the card, and the run
+    went through the kernels of its path."""
+    sharded = type(state).__name__.startswith("Sharded")
+    if sharded != (tier == "sharded"):
+        msg = f"{name}/{tier}: built {type(state).__name__}"
+        raise AssertionError(msg)
+    devices = state.mesh.devices if sharded else [state.device]
+    if any(d.type != DEV for d in devices):
+        msg = f"{name}/{tier}: state on {devices}"
+        raise AssertionError(msg)
+    if sharded and state.n_shards != len(devices):
+        raise AssertionError(f"{name}: {state.n_shards} shards on {devices}")
+    main = run["scan_launches"] if scan else run["launches"]
+    if main <= 0:
+        kernel = "segment_scan" if scan else "segment_fold"
+        raise AssertionError(f"{name}/{tier}: {kernel} was launched no time")
+    if (run["bucket_launches"] > 0) != sharded:
+        msg = f"{name}/{tier}: shard_bucket launched {run['bucket_launches']} times"
+        raise AssertionError(msg)
+
+
+def _sizing_timer():
+    """Time ``_ShardedSlots._sizing`` (the host's per-batch bucket
+    sizing: a bincount over (block, destination) pairs); returns the
+    timer and the undo function."""
+    from bytewax_tpu_torch.engine.sharded_state import _ShardedSlots
+
+    orig = _ShardedSlots._sizing
+    timer = _Timed(_ShardedSlots, "_sizing")
+
+    def undo():
+        _ShardedSlots._sizing = orig
+
+    return timer, undo
+
+
+def _shard_record(card: dict, name: str, mesh: str, rows: int, runs: dict, **extra) -> dict:
+    """Emit one ``sharded`` line for a flow run on both tiers; returns
+    the sharded run's launches of each kernel."""
+    sh, one = runs["sharded"], runs["single"]
+    launches = {
+        "segment_fold": sh["launches"],
+        "segment_scan": sh["scan_launches"],
+        "shard_bucket": sh["bucket_launches"],
+    }
+    state = sh["state"]
+    _emit(
+        card,
+        "sharded",
+        flow=name,
+        mesh=[str(d) for d in state.mesh.devices],
+        rows=rows,
+        rows_per_s=rows / sh["seconds"],
+        single_rows_per_s=rows / one["seconds"],
+        seconds=sh["seconds"],
+        single_seconds=one["seconds"],
+        launches=launches,
+        single_launches={"segment_fold": one["launches"], "segment_scan": one["scan_launches"]},
+        sizing_seconds=sh["sizing"]["seconds"],
+        sizing_calls=sh["sizing"]["calls"],
+        table_capacity=state.capacity,
+        cap_per_shard=state.cap_per_shard,
+        phase_seconds=sh["phase_seconds"],
+        single_phase_seconds=one["phase_seconds"],
+        **extra,
+    )
+    return launches
+
+
+def _shard_brc(card: dict, name: str, mesh: str, batches, n_stations: int) -> dict:
+    """``brc_flow_columnar`` over ``batches`` on both tiers, each
+    against the exact oracle and the two against each other."""
+    from bytewax_tpu_torch.models.brc import ArrayBatchSource, brc_flow_columnar
+    from bytewax_tpu_torch.testing import TestingSink
+
+    want = _reference(batches, n_stations)
+    runs, outs = {}, {}
+    for tier in ("sharded", "single"):
+        out = []
+        demoted_before = _demotions()
+        flow = brc_flow_columnar(ArrayBatchSource(batches), TestingSink(out))
+        states, _timers, undo = _recording_states()
+        timer, undo_timer = _sizing_timer()
+        try:
+            with _Tier(tier, mesh):
+                run = _run_flow(flow)
+        finally:
+            undo()
+            undo_timer()
+        if _demotions() != demoted_before:
+            raise AssertionError(f"{name}/{tier}: a step demoted to the host tier")
+        if len(states) != 1:
+            raise AssertionError(f"{name}/{tier}: {len(states)} states")
+        _check_tier(name, tier, states[0], run, scan=False)
+        worst = _check_brc(out, want, f"{name}/{tier}")
+        sizing = {"seconds": timer.seconds, "calls": timer.calls}
+        runs[tier] = dict(run, state=states[0], sizing=sizing, worst=worst)
+        outs[tier] = out
+    _check_same_brc(outs["sharded"], outs["single"], f"{name}: sharded against single")
+    rows = sum(len(b) for b in batches)
+    return _shard_record(card, name, mesh, rows, runs, stations=n_stations, batches=len(batches),
+                         max_abs_mean_err=runs["sharded"]["worst"])
+
+
+def _shard_windows(card: dict, mesh: str, n: int, n_keys: int) -> dict:
+    """Tumbling ``stats_window`` (phase 6's data) on both tiers, each
+    against the oracle and the two against each other."""
+    runs = {}
+    for tier in ("sharded", "single"):
+        demoted_before = _demotions()
+        timer, undo_timer = _sizing_timer()
+        try:
+            with _Tier(tier, mesh):
+                run = _window_case(card, "tumbling", SHARD_WINDOW_BATCHES, n, n_keys, seed=10,
+                                   phase=f"sharded_windows_{tier}")
+        finally:
+            undo_timer()
+        if _demotions() != demoted_before:
+            raise AssertionError(f"stats_window/{tier}: a step demoted to the host tier")
+        _check_tier("stats_window", tier, run["state"], run, scan=False)
+        runs[tier] = dict(run, sizing={"seconds": timer.seconds, "calls": timer.calls})
+    got, other, want = runs["sharded"]["got"], runs["single"]["got"], runs["sharded"]["want"]
+    if set(got) != set(other):
+        raise AssertionError("stats_window: the tiers closed different windows")
+    worst = 0.0
+    for kw, (mn, mean, mx, count) in got.items():
+        omn, omean, omx, ocount = other[kw]
+        if (mn, mx, count) != (omn, omx, ocount):
+            raise AssertionError(f"stats_window {kw}: {got[kw]} sharded, {other[kw]} single")
+        worst = max(worst, _check_mean(mean, omean, want[kw][4], f"stats_window {kw} sharded/single"))
+    return _shard_record(card, "stats_window", mesh, SHARD_WINDOW_BATCHES * n, runs,
+                         windows_closed=len(got), max_mean_rel_err_between_tiers=worst)
+
+
+def _shard_anomaly(card: dict, mesh: str, n: int, n_keys: int) -> dict:
+    """``anomaly_flow`` (phase 8's 10,000 sensors) on both tiers, each
+    against the oracle and the two against each other (values exact,
+    z within ``Z_RTOL`` of max(1, |z|), flags equal)."""
+    import numpy as np
+
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.models.anomaly import anomaly_flow
+    from bytewax_tpu_torch.models.brc import ArrayBatchSource
+
+    data = _anomaly_data(ANOMALY_BATCHES, n, n_keys, seed=20)
+    vocab = np.array([f"sensor_{i:07d}" for i in range(n_keys)])
+    index = {k: i for i, k in enumerate(vocab.tolist())}
+    batches = [ArrayBatch({"key_id": i, "value": v}, key_vocab=vocab)
+               for i, v in zip(data["ids_b"], data["vals_b"])]
+    rows = slice(0, n * ANOMALY_BATCHES)
+    runs = {}
+    for tier in ("sharded", "single"):
+        with _Tier(tier, mesh):
+            run = _scan_flow_case(
+                card, "anomaly_flow",
+                lambda sink: anomaly_flow(ArrayBatchSource(batches), sink, threshold=THRESHOLD),
+                data, "zscore", rows, index, phase=f"sharded_anomaly_{tier}",
+            )
+        _check_tier("anomaly_flow", tier, run["state"], run, scan=True)
+        # _scan_flow_case timed the sizing among its splits.
+        split = run["split"]
+        sizing = {"seconds": split["seconds"].get("sizing", 0.0), "calls": split["calls"].get("sizing", 0)}
+        runs[tier] = dict(run, sizing=sizing)
+    split = runs["sharded"]["split"]
+    a_ids, a = _out_columns(runs["sharded"]["out"], index, 3)
+    b_ids, b = _out_columns(runs["single"]["out"], index, 3)
+    if not (np.array_equal(a_ids, b_ids) and np.array_equal(a[0], b[0]) and np.array_equal(a[2], b[2])):
+        raise AssertionError("anomaly_flow: the tiers emitted other rows or flags")
+    z_err = float((np.abs(a[1] - b[1]) / np.maximum(1.0, np.abs(b[1]))).max())
+    if not z_err <= Z_RTOL:
+        raise AssertionError(f"anomaly_flow: z differs between the tiers by {z_err}")
+    return _shard_record(card, "anomaly_flow", mesh, n * ANOMALY_BATCHES, runs, sensors=n_keys,
+                         max_z_err_between_tiers=z_err, sharded_split_seconds=split["seconds"])
+
+
+def _shard_flows(card: dict, mesh: str) -> dict:
+    """Phase 11 (b): the sharded tier's flows on ``mesh``; returns each
+    flow's launches of each kernel."""
+    import numpy as np
+
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.models.brc import generate_batches
+
+    out = {}
+    n_stations = INGEST_STATIONS
+    batches = generate_batches(SHARD_BRC_BATCHES * BATCH_ROWS, BATCH_ROWS, n_stations, seed=0)
+    out["brc_flow_columnar"] = _shard_brc(card, "brc_flow_columnar", mesh, batches, n_stations)
+    rng = np.random.RandomState(50)
+    ids = rng.randint(0, n_stations, size=BATCH_ROWS).astype(np.int16)
+    ids[rng.rand(BATCH_ROWS) < 0.5] = 4321 % n_stations
+    deci = np.clip(np.round(rng.randn(BATCH_ROWS) * 100 + 120), -999, 999).astype(np.int16)
+    hot = [ArrayBatch({"key_id": ids, "value": deci}, key_vocab=batches[0].key_vocab, value_scale=0.1)]
+    out["brc_hot_key"] = _shard_brc(card, "brc_hot_key", mesh, hot, n_stations)
+    out["stats_window"] = _shard_windows(card, mesh, WINDOW_BATCH_ROWS, WINDOW_KEYS)
+    out["anomaly_flow"] = _shard_anomaly(card, mesh, SCAN_ROWS, SCAN_KEYS)
+    return out
+
+
+def phase_sharded(card: dict) -> dict:
+    """Phase 11: the shard-bucketing kernel against its plain version,
+    timed; the sharded tier's flows on 4 shards of ``cuda:0``, each on
+    both tiers; and again over every card where there is more than one
+    (else one line saying so).  Returns the kernel check and each
+    run's launches of each kernel."""
+    import torch
+
+    check = phase_shard_kernel(card, SHARD_KERNEL_ROWS)
+    launches = {f"sharded_{name}": v for name, v in _shard_flows(card, "cuda:0").items()}
+    if torch.cuda.device_count() > 1:
+        launches.update({f"sharded_cards_{k}": v for k, v in _shard_flows(card, "cards").items()})
+    else:
+        _emit(card, "sharded_cards", reached=False,
+              reason="one card: torch.cuda.device_count() == 1, so no mesh of distinct cards")
+    return dict(check, launches=launches)
+
+
 def main() -> int:
     if not (HERE / "bytewax_tpu_torch" / "csrc" / "segment_fold.cu").exists():
         print(
@@ -3264,16 +3683,17 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
-    from bytewax_tpu_torch.ops import fold_kernel, scan_kernel
+    from bytewax_tpu_torch.ops import bucket_kernel, fold_kernel, scan_kernel
 
     # One nvcc for each source, started together.
+    kernels = (fold_kernel, scan_kernel, bucket_kernel)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for built in [pool.submit(fold_kernel.build), pool.submit(scan_kernel.build)]:
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        for built in [pool.submit(mod.build) for mod in kernels]:
             built.result()
     ptxas = [
         ln
-        for mod in (fold_kernel, scan_kernel)
+        for mod in kernels
         for ln in mod.build_log.splitlines()
         if "registers" in ln or "Compiling entry" in ln
     ]
@@ -3308,9 +3728,16 @@ def main() -> int:
     clustered = phase_cluster(card)
     launches.update(clustered["fold"])
     scan_launches.update(clustered["scan"])
+    sharded = phase_sharded(card)
+    bucket_launches = {}
+    for path, counts in sharded["launches"].items():
+        launches[path] = counts["segment_fold"]
+        scan_launches[path] = counts["segment_scan"]
+        bucket_launches[path] = counts["shard_bucket"]
 
     times = shapes["brc_413"]
     scan_times = scan["times"]["welford"]
+    bucket_times = sharded["times"]["brc_10000"]
     keys = ("ms", "host_us", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card["line"])
     print(
@@ -3360,6 +3787,28 @@ def main() -> int:
                         "shapes": {
                             name: {key: t[key] for key in keys + ("cold_ms",)}
                             for name, t in scan["times"].items()
+                        },
+                    },
+                    {
+                        "name": "shard_bucket",
+                        "route": "cuda",
+                        "source": "bytewax_tpu_torch/csrc/shard_bucket.cu",
+                        "replaces": "bytewax_tpu/parallel/exchange.py:27",
+                        "launches": sum(bucket_launches.values()),
+                        "launches_by_path": bucket_launches,
+                        "max_abs_err": sharded["max_abs_err"],
+                        "ms": bucket_times["ms"],
+                        "graph_ms": bucket_times["graph_ms"],
+                        "host_us": bucket_times["host_us"],
+                        "plain_ms": bucket_times["plain_ms"],
+                        "bound_ms": bucket_times["bound_ms"],
+                        "bound_by": bucket_times["bound_by"],
+                        "library_ms": None,
+                        "library": "none: no single PyTorch call buckets rows by shard",
+                        "shape": "1BRC batch: 2^20 rows, 4 shards, 10,000 stations",
+                        "shapes": {
+                            name: {key: t[key] for key in keys + ("graph_ms",)}
+                            for name, t in sharded["times"].items()
                         },
                     },
                 ]

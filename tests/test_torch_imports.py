@@ -184,6 +184,43 @@ def test_distributed_tier_is_not_ported_yet(monkeypatch):
     assert state.finalize() == [("k", 2.5)]
 
 
+def test_shard_setting_picks_the_sharded_tiers(monkeypatch):
+    from bytewax_tpu_torch.engine.scan_accel import DeviceScanState
+    from bytewax_tpu_torch.engine.sharded_state import (
+        ShardedAggState,
+        ShardedScanState,
+        make_agg_state,
+        make_scan_state,
+    )
+    from bytewax_tpu_torch.ops.scan import WelfordZScore
+
+    monkeypatch.setenv(utils.VIRTUAL_DEVICES_ENV, "4")
+    monkeypatch.setenv("BYTEWAX_TPU_SHARD", "4")
+    agg, scan = make_agg_state("sum"), make_scan_state(WelfordZScore(2.0))
+    assert isinstance(agg, ShardedAggState) and isinstance(scan, ShardedScanState)
+    assert agg.mesh.devices == scan.mesh.devices == [torch.device("cpu")] * 4
+    agg.update(np.array(["k", "j", "k"]), np.array([2.5, 1.0, 0.5]))
+    assert agg.finalize() == [("j", 1.0), ("k", 3.0)]
+    monkeypatch.setenv("BYTEWAX_TPU_SHARD", "0")
+    assert isinstance(make_agg_state("sum"), DeviceAggState)
+    assert isinstance(make_scan_state(WelfordZScore(2.0)), DeviceScanState)
+
+
+def test_shard_setting_without_a_card_raises(monkeypatch):
+    from bytewax_tpu_torch.engine.sharded_state import make_agg_state, make_scan_state
+    from bytewax_tpu_torch.ops.scan import WelfordZScore
+
+    monkeypatch.delenv("BYTEWAX_TPU_PLATFORM")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv(utils.VIRTUAL_DEVICES_ENV, "4")
+    for shard in ("4", "auto"):
+        monkeypatch.setenv("BYTEWAX_TPU_SHARD", shard)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_agg_state("sum")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_scan_state(WelfordZScore(2.0))
+
+
 def _smoke(cwd: Path):
     return subprocess.run(
         [sys.executable, "chip_smoke.py"],

@@ -459,3 +459,145 @@ def test_scan_kernel_replayed_in_a_cuda_graph(dev, name):
             _same(g, w, "out")
         else:
             _close(g, w, 1e-4, "z")
+
+
+# -- the shard-bucketing kernel (csrc/shard_bucket.cu) ------------------------
+#
+# A permutation with counts: the kernel must equal its plain version
+# exactly, every lane, count and drop.  The shapes are chip_smoke.py's
+# phase-11 checks at 2^16 rows: 2, 4 and 8 shards; keys uniform over
+# 10,000 and over 2^20, and one hot key on half the rows; a capacity at
+# the true bucket maximum and one at half of it (rows dropped).
+
+from bytewax_tpu_torch.ops import bucket_kernel  # noqa: E402
+from bytewax_tpu_torch.parallel import exchange  # noqa: E402
+from bytewax_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+
+BUCKET_ROWS = 1 << 16
+BUCKET_DISTS = ("uniform_10k", "uniform_2p20", "hot_half")
+
+
+def _bucket_rows(dist: str, total: int, seed: int):
+    rng = np.random.RandomState(seed)
+    span = 10_000 if dist != "uniform_2p20" else 1 << 20
+    keys = rng.randint(0, span, size=total)
+    if dist == "hot_half":
+        keys[rng.rand(total) < 0.5] = 4321
+    vals = rng.randn(total).astype(np.float32)
+    valid = np.ones(total, dtype=bool)
+    valid[-(total // 7) :] = False  # a padded tail, as the states send
+    return keys.astype(np.int32), vals, valid
+
+
+def _bucket_both(dev, lanes, n_shards, capacity, **kw):
+    before = bucket_kernel.launches
+    got = exchange.bucket_blocks(lanes, n_shards, capacity, **kw)
+    assert bucket_kernel.launches == before + 1
+    want = exchange.bucket_blocks_plain(lanes, n_shards, capacity, **kw)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("out", "counts", "dropped")):
+        assert g.shape == w.shape, name
+        assert torch.equal(g, w), f"{name}: {int((g != w).sum())} entries differ"
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tight", [True, False], ids=["at_max", "under_max"])
+@pytest.mark.parametrize("flags", [0, exchange.DECODE, exchange.DECODE | exchange.POS])
+@pytest.mark.parametrize("dist", BUCKET_DISTS)
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+def test_bucket_kernel_matches_plain_on_card(dev, n_shards, dist, flags, tight):
+    keys, vals, valid = _bucket_rows(dist, BUCKET_ROWS, seed=n_shards)
+    n = BUCKET_ROWS // n_shards
+    kt = torch.from_numpy(keys).to(dev).view(n_shards, n)
+    vt = torch.from_numpy(vals).to(dev).view(torch.int32).view(n_shards, n)
+    ok = torch.from_numpy(valid).to(dev).view(n_shards, n)
+    _out, counts, _drop = exchange.bucket_blocks_plain([kt], n_shards, n, valid=ok)
+    top = int(counts.max())
+    capacity = top if tight else max(1, top // 2)
+    _out, _counts, dropped = _bucket_both(
+        dev, [kt, vt], n_shards, capacity, valid=ok, flags=flags, pad0=77, pos_base=5, pos_pad=-3
+    )
+    assert (int(dropped.sum()) == 0) == tight
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 4096, 4097, 10_000])
+def test_bucket_kernel_ragged_sizes(dev, n):
+    # Fewer rows than one tile, one chunk exactly, a ragged last
+    # chunk; three blocks; explicit shard ids, some out of range.
+    rng = np.random.RandomState(n)
+    sid = torch.from_numpy(rng.randint(-1, 7, size=3 * n).astype(np.int32)).to(dev).view(3, n)
+    lane = torch.from_numpy(rng.randint(0, 1 << 30, size=3 * n).astype(np.int32)).to(dev)
+    _bucket_both(dev, [lane.view(3, n)], 6, max(1, n // 2), shard_ids=sid)
+
+
+@pytest.mark.cuda
+def test_bucket_by_shard_on_card_matches_the_cpu(dev):
+    # The JAX-shaped entry point: [n, 3] float32 rows (a strided lane
+    # each), explicit shard ids, a valid mask.
+    rng = np.random.RandomState(3)
+    n = 5000
+    sid = rng.randint(0, 8, size=n).astype(np.int32)
+    rows = rng.randn(n, 3).astype(np.float32)
+    valid = rng.rand(n) < 0.9
+    before = bucket_kernel.launches
+    got = exchange.bucket_by_shard(
+        torch.from_numpy(sid).to(dev), torch.from_numpy(rows).to(dev), torch.from_numpy(valid).to(dev), 8, 700
+    )
+    assert bucket_kernel.launches == before + 1
+    want = exchange.bucket_by_shard(torch.from_numpy(sid), torch.from_numpy(rows), torch.from_numpy(valid), 8, 700)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_bucket_kernel_refuses_more_than_64_shards(dev):
+    lane = torch.zeros((1, 16), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shards"):
+        bucket_kernel.bucket([lane], 65, 4)
+
+
+def _card_mesh_against_the_cpu(card):
+    """Sharded aggregation and scan states on ``card`` against eight
+    shards of the CPU: the fold's values are multiples of 0.5 (exact
+    sums in any order) and the scan's outputs within 1e-4."""
+    from bytewax_tpu_torch.engine.sharded_state import ShardedAggState, ShardedScanState
+    from bytewax_tpu_torch.ops.scan import WelfordZScore
+
+    cpu = make_mesh(devices=[torch.device("cpu")] * 8)
+    n_card = card.shape["shard"]
+    rng = np.random.RandomState(9)
+    keys = np.array([f"k{i}" for i in rng.randint(0, 3000, size=40_000)])
+    vals = rng.randint(-400, 400, size=40_000) * 0.5
+    agg = [ShardedAggState("stats", m, cap_per_shard=64) for m in (card, cpu)]
+    scan = [ShardedScanState(WelfordZScore(2.0), m, cap_per_shard=64) for m in (card, cpu)]
+    folds, scans = fold_kernel.launches, scan_kernel.launches
+    emits = []
+    for i in range(0, len(keys), 10_000):
+        for st in agg:
+            st.update(keys[i : i + 10_000], vals[i : i + 10_000])
+        emits.append([st.update(keys[i : i + 10_000], vals[i : i + 10_000])[1] for st in scan])
+    assert fold_kernel.launches - folds == 4 * n_card
+    assert scan_kernel.launches - scans >= 4 * n_card
+    assert agg[0].finalize() == agg[1].finalize()
+    for on_card, on_cpu in emits:
+        np.testing.assert_allclose(on_card.outs[0], on_cpu.outs[0], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_sharded_states_on_a_card_mesh_match_the_cpu(dev):
+    # Four shards of cuda:0: one bucketing call, views for the exchange.
+    _card_mesh_against_the_cpu(make_mesh(devices=[torch.device("cuda", 0)] * 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repeat", [1, 2], ids=["a_shard_a_card", "two_shards_a_card"])
+def test_sharded_states_over_every_card_match_the_cpu(dev, repeat):
+    # Every card of the host, once or twice each in runs: one bucketing
+    # call a card, and copies between cards for the exchange.
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    cards = [torch.device("cuda", i) for i in range(n) for _ in range(repeat)]
+    _card_mesh_against_the_cpu(make_mesh(devices=cards))
