@@ -84,6 +84,9 @@ __all__ = [
 
 _EMPTY_COOLDOWN = timedelta(milliseconds=1)
 _DEFAULT_EPOCH_INTERVAL = timedelta(seconds=10)
+#: Seconds a process waits for its peers to join torch.distributed
+#: (BYTEWAX_TPU_DISTRIBUTED=1), and for each collective after.
+_DIST_INIT_TIMEOUT_S = 60.0
 
 Entry = Tuple[int, List[Any]]  # (worker lane, items)
 
@@ -3168,20 +3171,32 @@ class _Driver:
 
             force_platform(plat)
 
-        # Multi-host runs (BYTEWAX_TPU_DISTRIBUTED=1) need the
-        # cluster-wide device exchange, which the port does not have
-        # yet (ROADMAP queue A item 9).
+        # Multi-process runs with BYTEWAX_TPU_DISTRIBUTED=1 join one
+        # torch.distributed world (gloo) before any device state is
+        # built, so the cluster-wide exchange tier can route keyed rows
+        # over every process's devices while the host TCP mesh carries
+        # the control plane.  The coordinator defaults to process 0's
+        # host on the cluster port + 1711, as in the JAX package;
+        # override with BYTEWAX_TPU_COORDINATOR.  A peer that never
+        # joins fails the run after _DIST_INIT_TIMEOUT_S.
         if (
             os.environ.get("BYTEWAX_TPU_DISTRIBUTED") == "1"
             and self.proc_count > 1
         ):
-            msg = (
-                "BYTEWAX_TPU_DISTRIBUTED=1: the torch port has no "
-                "distributed device runtime yet (ROADMAP queue A item "
-                "9, multi-GPU tiers); unset it to run each process on "
-                "its own device"
-            )
-            raise NotImplementedError(msg)
+            from bytewax_tpu_torch.parallel.mesh import init_world
+
+            coord = os.environ.get("BYTEWAX_TPU_COORDINATOR")
+            if not coord:
+                # A deterministic coordinator port from the cluster
+                # port, folded into the registered-port range so high
+                # ephemeral cluster ports can't produce an invalid
+                # (>65535) address.  Collisions with unrelated
+                # listeners remain possible — set
+                # BYTEWAX_TPU_COORDINATOR explicitly on shared hosts.
+                host, _, port = addresses[0].rpartition(":")
+                cport = 1024 + (int(port) + 1711) % 60000
+                coord = f"{host or '127.0.0.1'}:{cport}"
+            init_world(proc_id, self.proc_count, coord, _DIST_INIT_TIMEOUT_S)
 
         self.store: Optional[RecoveryStore] = None
         self._loads: Dict[Tuple[str, str], bytes] = {}
@@ -4285,17 +4300,17 @@ class _Driver:
             )
             return
         if os.environ.get("BYTEWAX_TPU_DISTRIBUTED") == "1":
-            # The port has no distributed device runtime yet (ROADMAP
-            # queue A item 9), and a cluster of more than one process
-            # refuses the knob at startup: a move from one process to
-            # several would rebuild into that refusal.  Resize through
-            # the drain-to-stop relaunch instead, as the JAX package
-            # does under its distributed runtime.
+            # torch.distributed pins the world size at
+            # init_process_group and is not re-initialized in this
+            # process: survivors would rebuild against a stale world
+            # size while the joiner dials a coordinator that expects
+            # the old one.  Resize through the full drain-to-stop
+            # relaunch instead, as the JAX package does.
             logging.getLogger(__name__).warning(
                 "refusing live reconfigure under "
-                "BYTEWAX_TPU_DISTRIBUTED=1: the torch port has no "
-                "distributed device runtime (ROADMAP queue A item 9); "
-                "use the drain-to-stop path "
+                "BYTEWAX_TPU_DISTRIBUTED=1: the torch.distributed "
+                "runtime cannot change world size in-process; use "
+                "the drain-to-stop path "
                 "(BYTEWAX_TPU_AUTOSCALE_LIVE=0)"
             )
             return

@@ -11,8 +11,12 @@ shard, block *d* on device *d*), and each micro-batch runs one step
 that buckets rows by owner shard (``csrc/shard_bucket.cu``), ships each
 shard its rows, and folds (``csrc/segment_fold.cu``) or scans
 (``csrc/segment_scan.cu``) them into the shard's block
-(:mod:`bytewax_tpu_torch.ops.sharded`).  The cluster-wide tier is not
-ported yet, and ``BYTEWAX_TPU_DISTRIBUTED=1`` is refused.
+(:mod:`bytewax_tpu_torch.ops.sharded`).  :class:`GlobalAggState` is the
+cluster-wide tier: keyed rows buffer on the process that ingested them
+and, at each epoch close, one all-to-all over ``torch.distributed``
+routes them over every process's shards and the fold kernel folds them;
+or, quantized, pre-reduced partial frames ride the gsync metadata round
+and fold through ``csrc/agg_merge.cu``.
 
 This is the keyed shuffle of the reference collapsed into the step:
 ``hash(key) → worker → routed_exchange → per-key callback`` becomes
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from bytewax_tpu_torch.engine import flight as _flight
+from bytewax_tpu_torch.engine import wire as _wire
 from bytewax_tpu_torch.engine.arrays import ArrayBatch, KeyEncoder, VocabMaps
 from bytewax_tpu_torch.engine.scan_accel import ScanUpdates, _to_host
 from bytewax_tpu_torch.engine.xla import (
@@ -50,6 +55,7 @@ from bytewax_tpu_torch.ops.segment import AGG_KINDS, identity_for
 from bytewax_tpu_torch.parallel.mesh import SHARD_AXIS, Mesh, local_devices, make_mesh
 
 __all__ = [
+    "GlobalAggState",
     "ShardedAggState",
     "ShardedScanState",
     "make_agg_state",
@@ -60,14 +66,26 @@ _MIN_CAP_PER_SHARD = 128
 _MIN_ROWS_PER_SHARD = 64
 
 
-def _refuse_distributed(what: str) -> None:
-    if os.environ.get("BYTEWAX_TPU_DISTRIBUTED") == "1":
+def _gsync_overlap() -> bool:
+    """Whether the cluster-wide tier double-buffers its exchange rounds
+    (``BYTEWAX_TPU_GSYNC_OVERLAP``, default off: the lock-step tier)."""
+    return os.environ.get("BYTEWAX_TPU_GSYNC_OVERLAP", "0") not in ("", "0")
+
+
+def _gsync_depth() -> int:
+    """How many overlapped exchange rounds may be in flight on the
+    collective lane (``BYTEWAX_TPU_GSYNC_DEPTH``, default 1: double
+    buffered).  Only read under ``BYTEWAX_TPU_GSYNC_OVERLAP=1``."""
+    raw = os.environ.get("BYTEWAX_TPU_GSYNC_DEPTH", "1") or "1"
+    try:
+        depth = int(raw)
+    except ValueError:
         msg = (
-            "BYTEWAX_TPU_DISTRIBUTED=1: the torch port has no "
-            f"distributed {what} tier yet (ROADMAP queue A item 9, "
-            "multi-GPU tiers); unset it to run on this process's devices"
+            f"BYTEWAX_TPU_GSYNC_DEPTH={raw!r} is not an integer; use "
+            "the in-flight exchange-round bound (1 = double-buffered)"
         )
-        raise NotImplementedError(msg)
+        raise ValueError(msg) from None
+    return max(1, depth)
 
 
 def _shard_devices() -> Optional[List[torch.device]]:
@@ -104,17 +122,61 @@ def _shard_devices() -> Optional[List[torch.device]]:
 def make_agg_state(kind: str, driver=None):
     """Build aggregation state for one stateful step.
 
-    Tier selection, most-capable first:
+    Tier selection, most-capable first, as the JAX package picks:
 
+    - **cluster-wide exchange** (:class:`GlobalAggState`) when the
+      driver has a cluster mesh, ``BYTEWAX_TPU_DISTRIBUTED=1``,
+      ``BYTEWAX_TPU_GLOBAL_EXCHANGE`` is not ``0``, ``torch.distributed``
+      is up and spans exactly the cluster's processes (more than one),
+      and the flow has no recovery store.  With a store the JAX package
+      takes this tier only under ``BYTEWAX_TPU_GSYNC_OVERLAP=1`` (its
+      store-composable overlap), which the port refuses (ROADMAP A9c);
     - **per-process mesh** (:class:`ShardedAggState`) when
       :func:`_shard_devices` gives more than one device;
     - **single-device slot table** otherwise.
 
-    ``BYTEWAX_TPU_DISTRIBUTED=1`` asks for the cluster-wide exchange
-    tier, which the port does not have yet; it raises rather than
-    silently giving each process a private table.
+    The choice must be the same on every process: a failed probe of the
+    distributed runtime raises rather than leave this process alone on
+    another tier while its peers block in the collective flush.
     """
-    _refuse_distributed("aggregation")
+    if (
+        driver is not None
+        and driver.comm is not None
+        and (driver.store is None or _gsync_overlap())
+        and os.environ.get("BYTEWAX_TPU_DISTRIBUTED") == "1"
+        and os.environ.get("BYTEWAX_TPU_GLOBAL_EXCHANGE", "1") != "0"
+    ):
+        try:
+            import torch.distributed as dist
+
+            from bytewax_tpu_torch.parallel.mesh import distributed_is_initialized
+
+            eligible = (
+                distributed_is_initialized()
+                and dist.get_world_size() == driver.proc_count
+                and dist.get_world_size() > 1
+            )
+        except Exception as ex:  # noqa: BLE001 — probe failed HERE only
+            msg = (
+                "BYTEWAX_TPU_DISTRIBUTED=1 is set but probing the "
+                f"torch.distributed runtime failed on this process ({ex}); "
+                "a silent per-process downgrade would deadlock the "
+                "peers' collective flushes — fix the backend or run "
+                "the whole cluster with BYTEWAX_TPU_GLOBAL_EXCHANGE=0"
+            )
+            raise RuntimeError(msg) from ex
+        if eligible:
+            if driver.store is not None:
+                msg = (
+                    "BYTEWAX_TPU_DISTRIBUTED=1 with a recovery store and "
+                    "BYTEWAX_TPU_GSYNC_OVERLAP=1 asks for the cluster-wide "
+                    "tier's store-composable overlap, which the torch port "
+                    "does not have yet (ROADMAP A9c); run with "
+                    "BYTEWAX_TPU_GSYNC_OVERLAP=0 (per-process tiers with the "
+                    "store) or BYTEWAX_TPU_GLOBAL_EXCHANGE=0"
+                )
+                raise NotImplementedError(msg)
+            return GlobalAggState(kind, driver)
     devices = _shard_devices()
     if devices is None:
         return DeviceAggState(kind)
@@ -124,11 +186,11 @@ def make_agg_state(kind: str, driver=None):
 def make_scan_state(scan_kind):
     """Build ``stateful_map`` scan state for one step: mesh-sharded
     (exchange + per-shard segmented scan + outputs home) when more
-    than one local device is available, single-device otherwise.
-    ``BYTEWAX_TPU_DISTRIBUTED=1`` raises, as for aggregations."""
+    than one local device is available, single-device otherwise.  Scans
+    stay on these per-process tiers under ``BYTEWAX_TPU_DISTRIBUTED=1``,
+    as in the JAX package."""
     from bytewax_tpu_torch.engine.scan_accel import DeviceScanState
 
-    _refuse_distributed("scan")
     devices = _shard_devices()
     if devices is None:
         return DeviceScanState(scan_kind)
@@ -313,12 +375,7 @@ class _ShardedSlots:
         """A host array cut into per-shard source blocks on the shards'
         devices: one copy per run of shards on one device, each block a
         view of it."""
-        blocks: List[torch.Tensor] = []
-        for run in self.mesh.runs():
-            part = np.ascontiguousarray(arr[run.start * rows_per_shard : run.stop * rows_per_shard])
-            t = torch.from_numpy(part).to(self.mesh.devices[run.start])
-            blocks.extend(t.view(len(run), rows_per_shard).unbind(0))
-        return blocks
+        return _blocks_of(self.mesh, arr, rows_per_shard)
 
     def _sizing(self, kids: np.ndarray) -> Tuple[int, int, np.ndarray]:
         """``(rows_per_shard, capacity, pair_counts)``: the source
@@ -730,4 +787,782 @@ class ShardedScanState(_ShardedSlots, ScanUpdates):
             else:
                 idx = self._global_idx(kid)
                 out.append((key, self.kind.snapshot_of(tuple(host[nm][idx] for nm in names))))
+        return out
+
+
+def _blocks_of(mesh: Mesh, arr: np.ndarray, rows_per_shard: int) -> List[torch.Tensor]:
+    """A host array cut into per-shard source blocks on the shards'
+    devices: one copy per run of shards on one device, each block a
+    view of it."""
+    blocks: List[torch.Tensor] = []
+    for run in mesh.runs():
+        part = np.ascontiguousarray(arr[run.start * rows_per_shard : run.stop * rows_per_shard])
+        t = torch.from_numpy(part).to(mesh.devices[run.start])
+        blocks.extend(t.view(len(run), rows_per_shard).unbind(0))
+    return blocks
+
+
+def _discard_result(_res) -> None:
+    """Collective-lane finalize: the sealed task mutates the state it
+    owns in place; nothing surfaces at finalize."""
+
+
+class GlobalAggState:
+    """Cluster-spanning keyed aggregation over every process's devices.
+
+    Rows buffer on the process that ingested them and, at every epoch
+    close (a point all processes reach in the same order through the
+    close broadcast), one all-to-all over ``torch.distributed`` routes
+    them to their owner shard and the fold kernel folds them
+    (:func:`bytewax_tpu_torch.ops.sharded.make_global_step`).  The TCP
+    mesh carries only a small metadata round per flush (new keys, row
+    counts, the dtype vote) through ``driver.global_sync``.
+
+    Key placement is lane-aligned: a key's owner shard lives on the
+    process that owns the key's worker lane (``route_hash %
+    worker_count``), spread over that process's shards, so emission at
+    EOF needs no extra routing hop.  Slot assignment is deterministic
+    (merged new keys in sorted order), so every process holds the same
+    key→kid map without negotiation.
+
+    With ``BYTEWAX_TPU_GSYNC_QUANT`` armed, buffered rows pre-reduce per
+    key, and block-quantized partial frames ride the metadata round
+    instead (``engine/wire.py``); every process folds every peer's frame
+    into merge tables on its first device
+    (:func:`bytewax_tpu_torch.engine.xla.agg_merge`, ``csrc/agg_merge.cu``
+    on a card), or on the host under ``BYTEWAX_TPU_WIRE=pickle``.
+
+    With ``BYTEWAX_TPU_GSYNC_OVERLAP=1`` the sealed exchange of a close
+    runs on one ordered lane a driver (``BYTEWAX_TPU_GSYNC_DEPTH`` rounds
+    in flight) while the run loop computes later epochs.
+
+    Scope: flows without a recovery store (``make_agg_state``).
+    """
+
+    global_exchange = True
+
+    #: Per-shard slot capacity; keys-per-shard beyond this raise (the
+    #: blocks would have to be resized collectively).
+    CAP_PER_SHARD = 4096
+    #: Rows per device per exchange step: big flushes run as repeats of
+    #: this shape, so exchange buffers stay bounded.
+    CHUNK_PER_DEV = 1 << 18
+
+    def __init__(self, kind_name: str, driver):
+        from bytewax_tpu_torch.parallel.mesh import world
+
+        self.kind_name = kind_name
+        self.kind = AGG_KINDS[kind_name]
+        self.driver = driver
+        w = world()
+        if w is None or w.proc_count != driver.proc_count:
+            msg = (
+                "the cluster-wide exchange needs the torch.distributed "
+                "world that the driver joins at start-up under "
+                "BYTEWAX_TPU_DISTRIBUTED=1; it has not been joined"
+            )
+            raise RuntimeError(msg)
+        missing = [p for p, ds in enumerate(w.devices) if ds is None]
+        if missing:
+            msg = (
+                f"the cluster-wide exchange needs a device on every "
+                f"process; process(es) {missing} have none (no CUDA card, "
+                "and BYTEWAX_TPU_PLATFORM=cpu was not asked for)"
+            )
+            raise RuntimeError(msg)
+        counts = {len(ds) for ds in w.devices}
+        if len(counts) != 1:
+            msg = (
+                "the global-mesh exchange needs the same local device "
+                f"count on every process; got "
+                f"{ {p: len(ds) for p, ds in enumerate(w.devices)} } — run "
+                "with BYTEWAX_TPU_GLOBAL_EXCHANGE=0 or equalize "
+                "the cards each process sees"
+            )
+            raise RuntimeError(msg)
+        self.world = w
+        self.local_devs = counts.pop()
+        self.n_shards = self.local_devs * w.proc_count
+        #: proc id -> the global shard indices of its devices.
+        self._proc_shards = {
+            p: list(range(p * self.local_devs, (p + 1) * self.local_devs))
+            for p in range(w.proc_count)
+        }
+        self.cap_per_shard = self.CAP_PER_SHARD
+        self.mesh = make_mesh(devices=w.local)
+        #: Where the quantized mode's merge tables live.
+        self.device = self.mesh.devices[0]
+        #: Full global key→kid map, identical on every process.
+        self.key_to_kid: Dict[str, int] = {}
+        self._shard_fill = [0] * self.n_shards
+        #: Buffered local rows awaiting the next flush, dictionary
+        #: encoded: per-row dense local ids into ``_dense_keys``.
+        self._buf_ids: List[np.ndarray] = []
+        self._buf_vals: List[np.ndarray] = []
+        self._buf_all_int = True
+        self._dense_keys: List[str] = []
+        self._dense_map: Dict[str, int] = {}
+        self._vocab = VocabMaps(dtype=np.int32)
+        self._fields: Optional[List[Dict[str, torch.Tensor]]] = None
+        self.dtype = None  # decided collectively at the first flush
+        self._round = 0
+        self._steps: Dict[Tuple[int, int, Any], Any] = {}
+        #: Quantized aggregate exchange: the mode, agreed at every flush.
+        self._quant = _wire.gsync_quant()
+        #: Host-side merged partial fields (quant mode), indexed like
+        #: the device blocks (``n_shards * cap_per_shard``).
+        self._host_fields: Optional[Dict[str, np.ndarray]] = None
+        #: Whether every merged flush so far was all-integer.
+        self._quant_int = True
+        #: Device merge tables (quant mode); ``_merge_demoted`` pins the
+        #: host fold (``BYTEWAX_TPU_WIRE=pickle``, or an exact integer
+        #: part the int32 tables cannot hold).
+        self._dev_fields: Optional[Dict[str, torch.Tensor]] = None
+        self._merge_demoted = _wire.wire_mode() == "pickle"
+        #: The overlapped exchange lane, one a driver, shared by every
+        #: step of this tier: seal order is the agreed round order, so
+        #: the collectives launch in the same sequence on every process.
+        self._lane = None
+        if _gsync_overlap():
+            if getattr(driver, "_gsync_lane", None) is None:
+                from bytewax_tpu_torch.engine.pipeline import DevicePipeline
+
+                driver._gsync_lane = DevicePipeline(
+                    "gsync", depth=_gsync_depth() + 1, phase="collective_lane"
+                )
+            self._lane = driver._gsync_lane
+
+    # -- placement -----------------------------------------------------------
+
+    def _owner_shard(self, key: str) -> int:
+        h = zlib.adler32(key.encode())
+        w = h % self.driver.worker_count
+        p = self.driver.owner_proc(w)
+        shards = self._proc_shards[p]
+        return shards[(h // max(1, self.driver.worker_count)) % len(shards)]
+
+    def _global_idx(self, kid: int) -> int:
+        shard, slot = kid % self.n_shards, kid // self.n_shards
+        return shard * self.cap_per_shard + slot
+
+    def _bind_device(self) -> None:
+        """Make this tier's first card the current device of the calling
+        thread (the current CUDA device is per thread, and the lane runs
+        on its own)."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+
+    # -- buffering update surface -------------------------------------------
+
+    def _dense_alloc(self, keys: List[str]) -> List[int]:
+        out = []
+        for k in keys:
+            did = self._dense_map.get(k)
+            if did is None:
+                did = len(self._dense_keys)
+                self._dense_map[k] = did
+                self._dense_keys.append(k)
+            out.append(did)
+        return out
+
+    def _check_values(self, values: np.ndarray) -> None:
+        if values.dtype == object or values.dtype.kind in "US":
+            msg = (
+                "device-accelerated reduction requires numeric values; "
+                "pass a plain Python reducer for non-numeric data"
+            )
+            raise NonNumericValues(msg)
+        if np.issubdtype(values.dtype, np.integer):
+            if values.dtype.itemsize > 4 and len(values) and (
+                values.max() > np.iinfo(np.int32).max or values.min() < np.iinfo(np.int32).min
+            ):
+                msg = (
+                    "device-accelerated reduction over integers wider "
+                    "than 32 bits is not exact; pass a plain Python "
+                    "reducer"
+                )
+                raise NonNumericValues(msg)
+        elif self.dtype == torch.int32:
+            # Integral in-range floats after an int lock cast losslessly
+            # at flush; anything else would silently truncate.
+            if len(values) and (
+                np.any(values % 1)
+                or values.max() > np.iinfo(np.int32).max
+                or values.min() < np.iinfo(np.int32).min
+            ):
+                msg = (
+                    "non-integral float values arrived after earlier "
+                    "batches locked this step's global state to an "
+                    "integer dtype; pass a plain Python reducer for "
+                    "mixed int/float streams"
+                )
+                raise TypeError(msg)
+        else:
+            self._buf_all_int = False
+
+    def update(self, keys: np.ndarray, values: np.ndarray) -> List[str]:
+        from bytewax_tpu_torch.engine.arrays import factorize_keys
+
+        keys = np.asarray(keys)
+        values = np.asarray(values)
+        self._check_values(values)
+        codes, uniq = factorize_keys(keys)
+        uniq_list = [str(k) for k in uniq.tolist()]
+        dense_of = np.asarray(self._dense_alloc(uniq_list), dtype=np.int32)
+        self._buf_ids.append(dense_of[codes])
+        self._buf_vals.append(values.astype(np.float64))
+        return uniq_list
+
+    def update_items(self, items) -> Optional[List[str]]:
+        # The driver promotes itemized rows itself when this returns
+        # None.
+        return None
+
+    def update_batch(self, batch: ArrayBatch) -> List[str]:
+        values = batch.numpy("value")
+        if batch.value_scale is not None:
+            values = values * batch.value_scale
+        if "key_id" in batch.cols and batch.key_vocab is not None:
+            # Dictionary-encoded: external ids map to dense ids through
+            # the lineage's append-only vocabulary map.
+            ids = batch.numpy("key_id").astype(np.int64)
+            self._check_values(values)
+            _origin, vmap, _fresh = self._vocab.of(batch.key_vocab)
+            uniq_ext = vmap.sync(ids, batch.key_vocab, self._dense_alloc)
+            self._buf_ids.append(vmap.table[ids])
+            self._buf_vals.append(values.astype(np.float64))
+            return [str(vmap.vocab[e]) for e in uniq_ext.tolist()]
+        if "key" in batch.cols:
+            return self.update(batch.numpy("key"), values)
+        msg = (
+            "columnar batch feeding an accelerated keyed "
+            "aggregation needs a 'key' or dictionary-encoded "
+            "'key_id' column"
+        )
+        raise TypeError(msg)
+
+    def keys(self) -> List[str]:
+        known = set(self.key_to_kid)
+        known.update(self._dense_keys)
+        return sorted(known)
+
+    def discard(self, key: str) -> None:  # pragma: no cover - EOF clears
+        self.key_to_kid.pop(key, None)
+
+    # -- the collective flush -------------------------------------------------
+
+    def _assign_kids(self, new_keys: List[str]) -> None:
+        for k in new_keys:
+            if k in self.key_to_kid:
+                continue
+            shard = self._owner_shard(k)
+            slot = self._shard_fill[shard]
+            if slot >= self.cap_per_shard - 1:
+                msg = (
+                    f"global-exchange shard {shard} is full "
+                    f"({self.cap_per_shard - 1} keys; the last slot "
+                    "is exchange scratch); raise "
+                    "GlobalAggState.CAP_PER_SHARD"
+                )
+                raise RuntimeError(msg)
+            self._shard_fill[shard] = slot + 1
+            self.key_to_kid[k] = slot * self.n_shards + shard
+
+    def _ensure_fields(self) -> None:
+        from bytewax_tpu_torch.ops.sharded import init_sharded_fields
+
+        if self._fields is None:
+            self._fields = init_sharded_fields(self.kind, self.mesh, self.cap_per_shard, self.dtype)
+
+    def _step_for(self, rows_per_dev: int, capacity: int):
+        from bytewax_tpu_torch.ops.sharded import make_global_step
+
+        # dtype is part of the key: finalize() resets the dtype and the
+        # next lock may pick the other one.
+        key = (rows_per_dev, capacity, self.dtype)
+        step = self._steps.get(key)
+        if step is None:
+            step = make_global_step(
+                self.mesh, self.world, self.kind_name, self.cap_per_shard, capacity, dtype=self.dtype
+            )
+            self._steps[key] = step
+        return step
+
+    def fence(self) -> None:
+        """Wait out every in-flight overlapped round on the (driver
+        shared) collective lane: any read of the global result
+        (finalize) and the run-ending close; nothing per batch."""
+        if self._lane is not None:
+            self._lane.flush()
+
+    def lane_status(self) -> Optional[Dict[str, int]]:
+        """Collective-lane introspection for /status and /graph: sealed
+        rounds in flight and the configured depth; None when the
+        lock-step tier runs (no lane)."""
+        if self._lane is None:
+            return None
+        return {"in_flight": len(self._lane), "depth": self._lane.depth - 1}
+
+    def lane_shutdown(self) -> None:
+        """Teardown (driver ``pipeline_shutdown``, fault unwinds): stop
+        the driver-shared lane; pending work exists only on a fault path
+        and is dropped."""
+        lane, self._lane = self._lane, None
+        if lane is not None:
+            lane.drop_pending()
+            lane.shutdown()
+            if getattr(self.driver, "_gsync_lane", None) is lane:
+                self.driver._gsync_lane = None
+
+    def _note_flush(self, n_local: int, total_rows: int, n_steps: int, detail: str) -> None:
+        """Record one sealed-and-launched exchange round (flight ring
+        and the debug line, which names the transport)."""
+        _flight.RECORDER.record("global_flush", rows=n_local, total_rows=total_rows, steps=n_steps)
+        if os.environ.get("BYTEWAX_TPU_GLOBAL_EXCHANGE_DEBUG") == "1":
+            import sys
+
+            # One write a line: peers share the stream.
+            sys.stderr.write(
+                f"global-exchange: proc {self.driver.proc_id} flushed "
+                f"{n_local}/{total_rows} rows over {self.n_shards} "
+                f"shards in {n_steps} step(s), {detail}; transport "
+                f"{self.world.describe()}\n"
+            )
+            sys.stderr.flush()
+
+    def _launch(self, task) -> None:
+        """Run a sealed round inline (lock-step) or on the lane."""
+        if self._lane is None:
+            task()
+        else:
+            self._lane.push(task, _discard_result)
+
+    def flush(self) -> None:
+        """One collective exchange-and-fold round.  Every process calls
+        this the same number of times in the same global order (epoch
+        close and the EOF ladder guarantee it); a round where the whole
+        cluster has nothing buffered skips the device step but still
+        runs the metadata round.  The metadata rounds run here, on the
+        main thread; under overlap the sealed device phase runs on the
+        lane."""
+        driver = self.driver
+        n_local = int(sum(len(a) for a in self._buf_vals))
+        local_new = sorted(k for k in self._dense_keys if k not in self.key_to_kid)
+        quant = self._quant
+        frames = self._local_partial_frames() if quant != "off" else None
+        # Every process runs the same sequence of sync rounds, so the
+        # driver's monotone counter names the round cluster-wide.
+        tag = ("gagg", driver.next_gsync_tag())
+        self._round += 1
+        replies = driver.global_sync(tag, (local_new, n_local, self._buf_all_int, quant, frames))
+        modes = {r[3] for r in replies.values()}
+        if len(modes) != 1:
+            msg = (
+                "cluster processes disagree on BYTEWAX_TPU_GSYNC_QUANT "
+                f"({sorted(modes)}); the quantized aggregate exchange "
+                "must be armed identically on every process"
+            )
+            raise RuntimeError(msg)
+        merged_new = sorted({k for new, *_rest in replies.values() for k in new})
+        total_rows = sum(r[1] for r in replies.values())
+        all_int = all(r[2] for r in replies.values())
+        self._assign_kids(merged_new)
+        if total_rows == 0:
+            self._buf_ids.clear()
+            self._buf_vals.clear()
+            return
+        if quant != "off":
+            # The partial frames rode the round; seal the merge on main
+            # (decode, targets against the main-owned key_to_kid) and
+            # fold on the device or the host.
+            self._buf_ids.clear()
+            self._buf_vals.clear()
+            self._quant_int = self._quant_int and all_int
+            peer_frames = [replies[pid][4] for pid in sorted(replies)]
+            n_frames = sum(len(f or ()) for f in peer_frames)
+            sealed = self._seal_merge(peer_frames)
+            self._launch(lambda: self._apply_merge(sealed))
+            where = "host" if sealed["device"] is False else "device"
+            self._note_flush(
+                n_local,
+                total_rows,
+                1,
+                f"{n_frames} quantized partial frame(s) [{quant}, {where} merge]",
+            )
+            return
+        if self.dtype is None:
+            self.dtype = torch.int32 if all_int else torch.float32
+        elif self.dtype == torch.int32 and not all_int:
+            msg = (
+                "non-integral float values arrived after earlier "
+                "batches locked this step's global state to an "
+                "integer dtype; pass a plain Python reducer for "
+                "mixed int/float streams"
+            )
+            raise TypeError(msg)
+        self._ensure_fields()
+
+        # Chunk layout, the same on every process (from the synced
+        # per-process maximum): big flushes run as fixed-shape steps.
+        max_rows = max(n for _new, n, *_rest in replies.values())
+        chunk_pd = min(
+            _pow2(-(-max_rows // self.local_devs), int(math.log2(_MIN_ROWS_PER_SHARD))),
+            self.CHUNK_PER_DEV,
+        )
+        chunk_rows = chunk_pd * self.local_devs
+        n_steps = -(-max_rows // chunk_rows)
+        pad_total = n_steps * chunk_rows
+
+        ids_cat = np.concatenate(self._buf_ids) if self._buf_ids else np.empty(0, dtype=np.int32)
+        vals_cat = np.concatenate(self._buf_vals) if self._buf_vals else np.empty(0, dtype=np.float64)
+        self._buf_ids.clear()
+        self._buf_vals.clear()
+        # Kid resolution per distinct key, then one gather per row.
+        kid_map = self.key_to_kid
+        kid_of_dense = np.fromiter(
+            (kid_map[k] for k in self._dense_keys), dtype=np.int32, count=len(self._dense_keys)
+        )
+        kids = kid_of_dense[ids_cat] if len(ids_cat) else np.empty(0, dtype=np.int32)
+        kids_p = np.zeros(pad_total, dtype=np.int32)
+        kids_p[:n_local] = kids
+        vals_p = np.zeros(pad_total, dtype=_NP_OF[self.dtype])
+        vals_p[:n_local] = vals_cat
+        valid_p = np.zeros(pad_total, dtype=bool)
+        valid_p[:n_local] = True
+
+        # Exact exchange capacity: the local per-(step, source block,
+        # destination shard) maximum, then one more metadata round for
+        # the cluster's maximum, so every split of the all-to-all has
+        # the same size and no row is dropped.
+        idx = np.arange(n_local)
+        blk = (idx // chunk_rows) * self.local_devs + ((idx % chunk_rows) // chunk_pd)
+        pair_counts = np.bincount(
+            blk * self.n_shards + (kids % self.n_shards),
+            minlength=n_steps * self.local_devs * self.n_shards,
+        )
+        local_max = int(pair_counts.max()) if len(pair_counts) else 0
+        cap_replies = driver.global_sync(("gagg", driver.next_gsync_tag()), local_max)
+        capacity = _pow2(max(cap_replies.values()), 4)
+
+        _flight.note_transfer("h2d", kids_p.nbytes + vals_p.nbytes + valid_p.nbytes)
+        step = self._step_for(chunk_pd, capacity)
+        self._launch(
+            lambda: self._exchange_chunks(step, kids_p, vals_p, valid_p, chunk_rows, chunk_pd, n_steps)
+        )
+        self._note_flush(n_local, total_rows, n_steps, f"capacity {capacity}")
+
+    def _exchange_chunks(
+        self,
+        step,
+        kids_p: np.ndarray,
+        vals_p: np.ndarray,
+        valid_p: np.ndarray,
+        chunk_rows: int,
+        chunk_pd: int,
+        n_steps: int,
+    ) -> None:
+        """Run one sealed round's chunk sequence (the device phase)."""
+        self._bind_device()
+        for c in range(n_steps):
+            sl = slice(c * chunk_rows, (c + 1) * chunk_rows)
+            blocks = [_blocks_of(self.mesh, a[sl], chunk_pd) for a in (kids_p, vals_p, valid_p)]
+            self._fields = step(self._fields, *blocks)
+
+    def _local_partial_frames(self) -> List[bytes]:
+        """Pre-reduce this process's buffered rows per key and frame the
+        partial-aggregate columns for the gsync round: one ``key``
+        column (exact) plus one column a state field (``count`` and
+        all-integer partials exact, float partials block-quantized per
+        the armed mode)."""
+        if not self._dense_keys or not self._buf_ids:
+            return []
+        ids = np.concatenate(self._buf_ids)
+        vals = np.concatenate(self._buf_vals)
+        if not len(ids):
+            return []
+        # Remap to the touched dense ids only: work scales with this
+        # flush's rows and keys, never with the key history.
+        uniq, inv = np.unique(ids, return_inverse=True)
+        n_touched = len(uniq)
+        dense_keys = self._dense_keys
+        cols: Dict[str, np.ndarray] = {"key": np.array([dense_keys[i] for i in uniq.tolist()])}
+        counts = np.bincount(inv, minlength=n_touched)
+        for name, (_init, op) in self.kind.fields.items():
+            if name == "count":
+                arr = counts.astype(np.int64)
+            else:
+                if op == "add":
+                    arr = np.bincount(inv, weights=vals, minlength=n_touched)
+                elif op == "min":
+                    arr = np.full(n_touched, np.inf)
+                    np.minimum.at(arr, inv, vals)
+                else:
+                    arr = np.full(n_touched, -np.inf)
+                    np.maximum.at(arr, inv, vals)
+                if self._buf_all_int:
+                    # All-integer rows ship exact int64 partials.
+                    arr = np.rint(arr).astype(np.int64)
+            cols[name] = arr
+        return _wire.encode_agg(cols, self._quant)
+
+    def _merge_dtype(self, name: str) -> str:
+        """Device merge-table dtype for one field: ``count``, and every
+        field while the cluster-agreed all-int lock holds, folds on
+        int32 tables; once any peer ships floats the value fields
+        promote to float32."""
+        if name == "count" or self._quant_int:
+            return "int32"
+        return "float32"
+
+    def _seal_merge(self, peer_frames: List[Any]) -> Dict[str, Any]:
+        """Seal one quantized round's merge on the main thread: decode
+        every peer frame's raw parts and resolve scatter targets
+        against ``key_to_kid`` (the sealed task never reads main
+        state).  Decides device or host by the sticky
+        ``_merge_demoted`` flag: an exact integer part that the int32
+        tables cannot hold demotes the merge to the host fold for the
+        rest of the run (the same on every process: the frames are the
+        same).  Device-bound parts keep their length: the port has no
+        shape ladder (``engine/batching.py``), and the kernel takes any
+        row count.  Each frame's real targets are asserted unique: the
+        merge kernel folds one row a slot and refuses a frame that
+        repeats one."""
+        decoded = []
+        for frames in peer_frames:
+            for frame in frames or ():
+                parts = _wire.decode_agg_parts(frame)
+                kp = parts.get("key")
+                if kp is None or not len(kp[1]):
+                    continue
+                decoded.append((kp[1], {n: parts[n] for n in self.kind.fields}))
+        if not self._merge_demoted and self._needs_host_fold(decoded):
+            self._demote_merge()
+        kid_map = self.key_to_kid
+        size = self.n_shards * self.cap_per_shard
+        sealed = []
+        h2d = 0
+        for keys, fields in decoded:
+            n = len(keys)
+            gidx = np.fromiter(
+                (self._global_idx(kid_map[k]) for k in keys.tolist()), dtype=np.int64, count=n
+            )
+            if np.bincount(gidx, minlength=size).max() > 1:
+                msg = "a gsync partial frame names one key twice"
+                raise AssertionError(msg)
+            if self._merge_demoted:
+                sealed.append((gidx, fields))
+                continue
+            gidx32 = gidx.astype(np.int32)
+            h2d += gidx32.nbytes
+            sealed_fields = {}
+            for name in self.kind.fields:
+                enc, parts = fields[name]
+                want = self._merge_dtype(name)
+                # Copies: the decoded parts are read-only views of the
+                # frame.
+                if enc == "int8":
+                    arrays = tuple(np.array(a) for a in parts)
+                elif enc == "bf16":
+                    arrays = (np.array(parts).view(np.int16),)
+                else:  # raw, cast to the table dtype (lossless:
+                    # _needs_host_fold demoted anything that is not)
+                    arrays = (np.asarray(parts).astype(np.dtype(want)),)
+                sealed_fields[name] = (enc, arrays, want)
+                h2d += sum(a.nbytes for a in arrays)
+            sealed.append((gidx32, n, sealed_fields))
+        if self._merge_demoted:
+            return {"device": False, "frames": sealed}
+        _flight.note_transfer("h2d", h2d)
+        _flight.RECORDER.count("gsync_merge_h2d_bytes", h2d)
+        return {"device": True, "frames": sealed}
+
+    def _needs_host_fold(self, decoded: List[Any]) -> bool:
+        """Whether an exact part of this round cannot fold on the
+        device tables: an integer column bound for an int32 table whose
+        values overflow it."""
+        info = np.iinfo(np.int32)
+        for _keys, fields in decoded:
+            for name in self.kind.fields:
+                enc, parts = fields[name]
+                if enc != "raw" or self._merge_dtype(name) != "int32":
+                    continue
+                arr = np.asarray(parts)
+                if arr.dtype.kind not in "iu":
+                    return True
+                if arr.dtype.itemsize > 4 and len(arr) and (arr.max() > info.max or arr.min() < info.min):
+                    return True
+        return False
+
+    def _demote_merge(self) -> None:
+        """Sticky demotion to the host fold (main thread): fence any
+        in-flight device merge, fetch the device tables into the host
+        blocks, and fold on the host from here on."""
+        self._merge_demoted = True
+        if self._dev_fields is None:
+            return
+        self.fence()
+        self._host_fields = self._fetch_dev_fields()
+        self._dev_fields = None
+
+    def _fetch_dev_fields(self) -> Dict[str, np.ndarray]:
+        """One device→host fetch of the merge tables (float64 host
+        blocks): the device merge's only d2h (finalize, demotion)."""
+        host = {}
+        d2h = 0
+        for name, table in self._dev_fields.items():
+            raw = table.cpu().numpy()
+            d2h += raw.nbytes
+            host[name] = raw.astype(np.float64)
+        _flight.note_transfer("d2h", d2h)
+        _flight.RECORDER.count("gsync_fetch_d2h_bytes", d2h)
+        return host
+
+    def _apply_merge(self, sealed: Dict[str, Any]) -> None:
+        """Fold one sealed round (on the lane under overlap, inline
+        otherwise).  Every process folds the same frames in the same
+        order, so the merged tables stay the same on every process."""
+        if sealed["device"]:
+            self._apply_merge_device(sealed["frames"])
+        else:
+            self._apply_merge_host(sealed["frames"])
+
+    def _apply_merge_host(self, sealed_frames: List[Any]) -> None:
+        """The host fold (``BYTEWAX_TPU_WIRE=pickle``, and the oracle in
+        tests): dequantize each part to float64 and scatter into host
+        field blocks."""
+        if self._host_fields is None:
+            size = self.n_shards * self.cap_per_shard
+            self._host_fields = {
+                name: np.full(size, init, dtype=np.float64)
+                for name, (init, _op) in self.kind.fields.items()
+            }
+        host_bytes = 0
+        for gidx, fields in sealed_frames:
+            for name, (_init, op) in self.kind.fields.items():
+                enc, parts = fields[name]
+                vals = np.asarray(_wire.dequant_part(enc, parts), dtype=np.float64)
+                host_bytes += vals.nbytes
+                tgt = self._host_fields[name]
+                if op == "add":
+                    np.add.at(tgt, gidx, vals)
+                elif op == "min":
+                    np.minimum.at(tgt, gidx, vals)
+                else:
+                    np.maximum.at(tgt, gidx, vals)
+        _flight.RECORDER.count("gsync_merge_host_bytes", host_bytes)
+
+    def _apply_merge_device(self, sealed_frames: List[Any]) -> None:
+        """The device fold: upload each sealed frame's wire-width parts
+        and dequantize, merge and scatter them on the device
+        (:func:`~bytewax_tpu_torch.engine.xla.agg_merge`), one launch
+        for each (frame, field), frames in peer order; the tables stay
+        on the device between closes."""
+        from bytewax_tpu_torch.engine import xla as _xla
+
+        self._bind_device()
+        size = self.n_shards * self.cap_per_shard
+        if self._dev_fields is None:
+            self._dev_fields = {}
+        tables = self._dev_fields
+        dev = self.device
+        for gidx, n, fields in sealed_frames:
+            g = torch.from_numpy(gidx).to(dev)
+            for name, (init, op) in self.kind.fields.items():
+                enc, parts, want = fields[name]
+                table = tables.get(name)
+                if table is None:
+                    table = _xla.agg_merge_table(size, init, want, dev)
+                elif table.dtype != _xla._TABLE_DTYPES[want]:
+                    # The int32 → float32 promotion at the first round
+                    # that is not all-integer, in round order: the same
+                    # on every process.
+                    table = table.to(torch.float32)
+                tables[name] = _xla.agg_merge(
+                    table, g, n, enc, [torch.from_numpy(p).to(dev) for p in parts], op
+                )
+
+    # -- recovery / emission --------------------------------------------------
+
+    def load(self, key: str, state: Any) -> None:
+        self.load_many([(key, state)])
+
+    def load_many(self, items) -> None:
+        """Resuming into this tier needs the store-composable overlap,
+        which the port does not have (ROADMAP A9c); ``make_agg_state``
+        never builds this tier with a store."""
+        msg = (
+            "the cluster-wide exchange tier cannot resume store rows in "
+            "the torch port (ROADMAP A9c); resume with "
+            "BYTEWAX_TPU_GLOBAL_EXCHANGE=0"
+        )
+        raise NotImplementedError(msg)
+
+    def snapshots_for(self, keys: List[str]) -> List[Tuple[str, Any]]:
+        # Only reachable with no recovery store: the epoch snapshot
+        # pass discards these.
+        return [(k, None) for k in keys]
+
+    def _local_host_fields(self) -> Dict[str, np.ndarray]:
+        """Every field over this process's shards, ``[local_devs *
+        cap_per_shard]`` host arrays from the first local shard's
+        global offset on."""
+        out: Dict[str, np.ndarray] = {}
+        d2h = 0
+        for name in self.kind.fields:
+            host = torch.cat([block[name].to(self.device) for block in self._fields]).cpu().numpy()
+            d2h += host.nbytes
+            out[name] = host
+        _flight.note_transfer("d2h", d2h)
+        _flight.RECORDER.count("gsync_fetch_d2h_bytes", d2h)
+        return out
+
+    def _exactify(self, val: Any) -> Any:
+        """Re-integerize a quant-mode final value when every merged
+        flush was all-integer, matching the exact tier's int lock."""
+        if not self._quant_int:
+            return val
+        if self.kind_name in ("sum", "min", "max"):
+            return int(val)
+        if self.kind_name == "stats":
+            mn, mean, mx, count = val
+            return (int(mn), mean, int(mx), count)
+        return val
+
+    def finalize(self) -> List[Tuple[str, Any]]:
+        """Flush the tail rows (collective: the EOF ladder has every
+        process here), fence the lane, then emit ``(key, final)`` for
+        the keys whose owner shard is this process's (lane-aligned
+        placement makes those its emission keys), sorted by key."""
+        self.flush()
+        self.fence()
+        out: List[Tuple[str, Any]] = []
+        my_shards = set(self._proc_shards[self.driver.proc_id])
+        if self._quant != "off":
+            if self._dev_fields is not None:
+                self._host_fields = self._fetch_dev_fields()
+                self._dev_fields = None
+            if self._host_fields is not None:
+                for key in sorted(self.key_to_kid):
+                    kid = self.key_to_kid[key]
+                    if kid % self.n_shards in my_shards:
+                        final = _final_of(self.kind_name, self._host_fields, self._global_idx(kid))
+                        out.append((key, self._exactify(final)))
+        elif self._fields is not None and self.key_to_kid:
+            blocks = self._local_host_fields()
+            lo = min(my_shards) * self.cap_per_shard
+            for key in sorted(self.key_to_kid):
+                kid = self.key_to_kid[key]
+                if kid % self.n_shards in my_shards:
+                    out.append((key, _final_of(self.kind_name, blocks, self._global_idx(kid) - lo)))
+        self.key_to_kid.clear()
+        self._shard_fill = [0] * self.n_shards
+        self._fields = None
+        self._host_fields = None
+        self._dev_fields = None
+        self.dtype = None
+        self._buf_all_int = True
+        self._quant_int = True
+        self._dense_keys = []
+        self._dense_map = {}
+        self._vocab = VocabMaps(dtype=np.int32)
         return out

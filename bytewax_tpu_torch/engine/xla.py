@@ -29,7 +29,15 @@ from bytewax_tpu_torch.ops.segment import (
     update_fields_vocab,
 )
 
-__all__ = ["AccelSpec", "DeviceAggState", "NonNumericValues", "load_fields"]
+__all__ = [
+    "AccelSpec",
+    "DeviceAggState",
+    "NonNumericValues",
+    "agg_merge",
+    "agg_merge_plain",
+    "agg_merge_table",
+    "load_fields",
+]
 
 _MIN_CAPACITY = 1024
 
@@ -668,3 +676,115 @@ def load_fields(
         slot for slot, key in enumerate(state.slot_keys) if key is None
     ]
     return state
+
+
+# -- global-exchange device merge ---------------------------------------------
+#
+# The quantized gsync rounds of the cluster-wide exchange tier
+# (engine/sharded_state.py ``GlobalAggState``) ship each process's
+# per-key partial aggregates inside the metadata round; every process
+# folds every peer's frame into device-resident merge tables, so the
+# merged aggregate stays on the card between closes and the only
+# per-round host traffic is the wire-width frames themselves.  On a
+# CUDA table the fold is the hand-written kernel ``csrc/agg_merge.cu``
+# (:mod:`bytewax_tpu_torch.ops.merge_kernel`), one launch for each
+# (frame, field); on a CPU table it is the plain version below.  The
+# JAX package compiles one program per (op, encoding, dtype, padded
+# length) (``agg_merge_fn``); here nothing is compiled per shape.
+
+_TABLE_DTYPES = {"int32": torch.int32, "float32": torch.float32}
+_INT32_LO, _INT32_HI = -(2**31), 2**31 - 1
+
+
+def agg_merge_table(
+    size: int, init: float, table_dtype: str, device="cpu"
+) -> torch.Tensor:
+    """A fresh merge table of ``size`` slots on ``device``, set to the
+    field's fold identity (±inf saturates for int32)."""
+    dtype = _TABLE_DTYPES[table_dtype]
+    return torch.full((size,), identity_for(init, dtype), dtype=dtype, device=device)
+
+
+def _dequantize_part(enc: str, parts: Sequence[torch.Tensor], n: int, dtype) -> torch.Tensor:
+    """Rows ``[0, n)`` of a frame's part as ``dtype``: the kernel's
+    arithmetic (one float32 product for int8, the upper half of a
+    float32 for bf16; to int32 by truncation that saturates and takes
+    NaN to 0, as XLA's convert does)."""
+    if enc == "raw":
+        return parts[0][:n].to(dtype)
+    if enc == "int8":
+        scales, q = parts
+        rows = torch.arange(n, device=q.device) // 1024
+        vals = q[:n].to(torch.float32) * scales[rows]
+    else:
+        (hi,) = parts
+        vals = ((hi[:n].to(torch.int32) & 0xFFFF) << 16).view(torch.float32)
+    if dtype == torch.float32:
+        return vals
+    wide = torch.nan_to_num(vals.to(torch.float64), nan=0.0)
+    return wide.clamp(_INT32_LO, _INT32_HI).trunc().to(torch.int32)
+
+
+def agg_merge_plain(
+    table: torch.Tensor,
+    gidx: torch.Tensor,
+    n: int,
+    enc: str,
+    parts: Sequence[torch.Tensor],
+    op: str,
+) -> torch.Tensor:
+    """The plain PyTorch version of the merge kernel, in place: rows
+    ``[0, n)`` of one frame's field dequantized, then combined into
+    ``table[gidx[i]]`` by ``op`` (float min and max propagate NaN: a NaN
+    row replaces any number and a stored NaN stays).  Rows from ``n`` on
+    are padding and are not read; on a table whose padding target holds
+    the identity, as the tier's scratch slot does, that is the JAX
+    package's fold of the identity there.  A frame's real targets must
+    be unique table slots (each slot takes one combine a frame, so the
+    result does not depend on order); this raises otherwise."""
+    n = int(n)
+    idx = gidx[:n].long()
+    size = table.shape[0]
+    if n and (int(idx.min()) < 0 or int(idx.max()) >= size):
+        msg = f"agg_merge: a target lies outside the {size}-slot table"
+        raise ValueError(msg)
+    if n and int(torch.bincount(idx, minlength=size).max()) > 1:
+        msg = "agg_merge: a frame's real targets must be unique table slots"
+        raise ValueError(msg)
+    vals = _dequantize_part(enc, parts, n, table.dtype)
+    old = table[idx]
+    if op == "add":
+        new = old + vals
+    elif op in ("min", "max"):
+        better = vals < old if op == "min" else vals > old
+        if table.dtype.is_floating_point:
+            better = ~torch.isnan(old) & (torch.isnan(vals) | better)
+        new = torch.where(better, vals, old)
+    else:
+        msg = f"unknown merge op {op!r}"
+        raise ValueError(msg)
+    table[idx] = new
+    return table
+
+
+def agg_merge(
+    table: torch.Tensor,
+    gidx: torch.Tensor,
+    n: int,
+    enc: str,
+    parts: Sequence[torch.Tensor],
+    op: str,
+) -> torch.Tensor:
+    """Fold one frame's field into a merge table in place: the kernel
+    on a CUDA table, the plain version (:func:`agg_merge_plain`) on a
+    CPU table; see :func:`bytewax_tpu_torch.ops.merge_kernel.merge`
+    for the arguments."""
+    if table.device.type == "cuda":
+        from bytewax_tpu_torch.ops import merge_kernel
+
+        merge_kernel.merge(table, gidx, n, enc, parts, op)
+        return table
+    if table.device.type == "cpu":
+        return agg_merge_plain(table, gidx, n, enc, parts, op)
+    msg = f"the merge runs on cuda or cpu tensors, not {table.device}"
+    raise ValueError(msg)

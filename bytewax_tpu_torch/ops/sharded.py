@@ -9,7 +9,9 @@ on the card: ``csrc/shard_bucket.cu`` buckets the rows by owner
 (:mod:`bytewax_tpu_torch.parallel.exchange`), and each shard's block
 folds through ``csrc/segment_fold.cu`` (:mod:`bytewax_tpu_torch.ops.segment`)
 or scans through ``csrc/segment_scan.cu`` (:mod:`bytewax_tpu_torch.ops.scan`).
-On CPU tensors each runs its plain PyTorch version.
+On CPU tensors each runs its plain PyTorch version.  Across processes
+(:func:`make_global_step`) the same kernels run around one all-to-all
+over ``torch.distributed``.
 
 The JAX package compiles each step as one ``shard_map`` program and
 keeps every shape static for XLA; here a step is a Python function over
@@ -23,11 +25,12 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from bytewax_tpu_torch.ops.segment import AGG_KINDS, AggKind, init_fields, update_fields
-from bytewax_tpu_torch.parallel.exchange import DECODE, POS, exchange_rows
-from bytewax_tpu_torch.parallel.mesh import SHARD_AXIS, Mesh
+from bytewax_tpu_torch.parallel.exchange import DECODE, POS, exchange_procs, exchange_rows
+from bytewax_tpu_torch.parallel.mesh import SHARD_AXIS, Mesh, World
 
 __all__ = [
     "init_sharded_fields",
+    "make_global_step",
     "init_sharded_scan_fields",
     "make_sharded_scan_step",
     "make_sharded_step",
@@ -94,6 +97,47 @@ def make_sharded_step(
             pad0=cap_per_shard - 1,
         )
         for d in range(n_shards):
+            vals = recv[d][1].reshape(-1)
+            if dtype != torch.int32:
+                vals = vals.view(torch.float32)
+            update_fields(kind, fields[d], recv[d][0].reshape(-1), vals)
+        return fields
+
+    return step
+
+
+def make_global_step(
+    mesh: Mesh,
+    world: World,
+    kind_name: str,
+    cap_per_shard: int,
+    exchange_capacity: int,
+    dtype=torch.float32,
+):
+    """Build the cluster-wide counterpart of :func:`make_sharded_step`:
+    the same ``step(fields, key_ids, values, valid) -> fields`` over
+    this process's shards (``mesh``), with key ownership ``key_id %
+    (P * L)`` over every process's ``L`` shards.  The rows cross
+    processes in one all-to-all
+    (:func:`bytewax_tpu_torch.parallel.exchange.exchange_procs`), then
+    each local shard folds what it received through
+    ``csrc/segment_fold.cu`` (scratch rows aim at its last slot and fold
+    nothing).  Every process runs the step at the same points with the
+    same block length and ``exchange_capacity``."""
+    kind = AGG_KINDS[kind_name]
+    n_local = mesh.shape[SHARD_AXIS]
+
+    def step(fields: Blocks, key_ids, values, valid) -> Blocks:
+        recv = exchange_procs(
+            mesh,
+            world,
+            exchange_capacity,
+            [[k.to(torch.int32) for k in key_ids], _bits(values, dtype)],
+            valid,
+            flags=DECODE,
+            pad0=cap_per_shard - 1,
+        )
+        for d in range(n_local):
             vals = recv[d][1].reshape(-1)
             if dtype != torch.int32:
                 vals = vals.view(torch.float32)

@@ -9,26 +9,37 @@ version below on a CPU tensor, and the exchange is a device-to-device
 copy per (source device, destination device) pair: a view where both
 shards share a device.
 
+Across processes (the cluster-wide exchange tier,
+``BYTEWAX_TPU_DISTRIBUTED=1``) :func:`exchange_procs` buckets each
+process's blocks over every process's shards with the same kernel and
+ships each peer its slice with one ``all_to_all_single`` over
+``torch.distributed``: NCCL between cards of their own, else gloo,
+staged through pinned host memory where the buffers lie on a card
+(:class:`bytewax_tpu_torch.parallel.mesh.World`).
+
 Buckets are fixed-capacity; the capacity is a per-step micro-batch
 bound, not a global limit — ``engine/sharded_state.py`` sizes it to the
-batch's exact per-(source, destination) maximum, so its exchanges never
-drop a row.
+batch's exact per-(source, destination) maximum (over the cluster, for
+the cross-process exchange), so its exchanges never drop a row.
 """
 
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from bytewax_tpu_torch.engine import flight as _flight
 from bytewax_tpu_torch.ops import bucket_kernel
 from bytewax_tpu_torch.ops.bucket_kernel import DECODE, POS
-from bytewax_tpu_torch.parallel.mesh import SHARD_AXIS, Mesh
+from bytewax_tpu_torch.parallel.mesh import SHARD_AXIS, Mesh, World
 
 __all__ = [
     "DECODE",
     "POS",
+    "all_to_all_procs",
     "bucket_blocks",
     "bucket_blocks_plain",
     "bucket_by_shard",
+    "exchange_procs",
     "exchange_rows",
     "keyed_all_to_all",
 ]
@@ -291,3 +302,76 @@ def keyed_all_to_all(
         masks.append((slots[None, :] < counts[:, d, None].to(dev)).reshape(-1))
         drops.append(total.to(dev))
     return got, masks, drops
+
+
+def all_to_all_procs(world: World, send: torch.Tensor) -> torch.Tensor:
+    """One ``all_to_all_single`` over the cluster's processes with equal
+    splits: ``send[q]`` goes to process ``q``, and the result's ``[q]``
+    is what process ``q`` sent this one (``send``'s first dimension is
+    the process count).  On NCCL the buffers stay on the card; on gloo
+    a buffer on a card is copied to pinned host memory and back."""
+    import torch.distributed as dist
+
+    if world.transport == "nccl":
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=world.group)
+        return recv
+    if send.device.type != "cuda":
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send)
+        return recv
+    host = torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
+    host.copy_(send)
+    back = torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
+    dist.all_to_all_single(back, host)
+    nbytes = host.numel() * host.element_size()
+    _flight.note_transfer("d2h", nbytes)
+    _flight.note_transfer("h2d", nbytes)
+    return back.to(send.device, non_blocking=True)
+
+
+def exchange_procs(
+    mesh: Mesh,
+    world: World,
+    capacity: int,
+    lanes: Sequence[Sequence[torch.Tensor]],
+    valid: Sequence[torch.Tensor],
+    flags: int = 0,
+    pad0: int = 0,
+) -> List[torch.Tensor]:
+    """Ship rows to their owner shard over every process's shards.
+
+    ``mesh`` is this process's shards; global shard ``g`` sits on
+    process ``g // L`` (``L`` shards a process, the same on each).
+    ``lanes[k][s]`` is lane ``k`` of local source block ``s`` and
+    ``valid[s]`` its mask, as for :func:`exchange_rows`; a row's owner
+    is lane 0 modulo the global shard count.  Each run of blocks on
+    one device is bucketed by one kernel call over all ``P * L``
+    shards, the buckets are laid out so that each peer's destinations
+    form one contiguous slice, and one :func:`all_to_all_procs` ships
+    them.  Returns, for each local shard ``d``, ``[n_out, P * L,
+    capacity]`` on ``mesh.devices[d]``: every global source block's
+    bucket ``d``, in process order.  Every process must call this with
+    the same ``capacity`` and block length: the splits are equal."""
+    n_local = mesh.shape[SHARD_AXIS]
+    procs = world.proc_count
+    n_shards = procs * n_local
+    outs = []
+    for run in mesh.runs():
+        rows = [_run_rows([lane[s] for s in run]) for lane in lanes]
+        ok = _run_rows([valid[s] for s in run])
+        out, _counts, _dropped = bucket_blocks(
+            rows, n_shards, capacity, valid=ok, flags=flags, pad0=pad0
+        )
+        outs.append(out)
+    home = mesh.devices[0]
+    out = outs[0] if len(outs) == 1 else torch.cat([o.to(home) for o in outs], dim=2)
+    n_out = out.shape[0]
+    # [lane, dst, src, cap] -> [peer, lane, dst of the peer, src, cap]
+    send = out.view(n_out, procs, n_local, n_local, capacity).transpose(0, 1).contiguous()
+    recv = all_to_all_procs(world, send)
+    got = []
+    for d, dev in enumerate(mesh.devices):
+        rows = recv[:, :, d].transpose(0, 1).reshape(n_out, n_shards, capacity)
+        got.append(rows if rows.device == dev else rows.to(dev))
+    return got

@@ -4,6 +4,105 @@ API parity with the reference (upstream bytewax ``pysrc/bytewax/testing.py``);
 implementation is our own.
 """
 
+
+def _cluster_test_main() -> None:
+    """``python -m bytewax_tpu_torch.testing``: spawn a localhost
+    cluster of subprocesses running the given flow (parity with
+    upstream bytewax ``pysrc/bytewax/testing.py:311-343``).  Each child
+    runs ``python -m bytewax_tpu_torch.run``; on one host they share
+    its one card (``cuda:0``) unless ``BYTEWAX_TPU_PLATFORM=cpu``."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from bytewax_tpu_torch.run import _create_arg_parser
+
+    parser = _create_arg_parser()
+    parser.prog = "python -m bytewax_tpu_torch.testing"
+    parser.add_argument(
+        "-p",
+        "--processes",
+        type=int,
+        default=1,
+        help="Number of local processes to spawn",
+    )
+    args = parser.parse_args()
+
+    if args.processes == 1 and (args.workers_per_process or 1) == 1:
+        from bytewax_tpu_torch.run import _main as run_main_cli
+
+        passthrough = [sys.argv[0], args.import_str]
+        if args.recovery_directory is not None:
+            passthrough += ["-r", str(args.recovery_directory)]
+        if args.snapshot_interval is not None:
+            passthrough += ["-s", str(args.snapshot_interval.total_seconds())]
+        if args.backup_interval is not None:
+            passthrough += ["-b", str(args.backup_interval.total_seconds())]
+        if args.rescale:
+            passthrough += ["--rescale"]
+        sys.argv = passthrough
+        run_main_cli()
+        return
+
+    # Allocate each worker's port and HOLD it (SO_REUSEPORT, not
+    # listening) until the children have spawned: closing before the
+    # child rebinds would let any concurrent process steal the port.
+    addresses = []
+    holders = []
+    for _ in range(args.processes):
+        s = socket.socket()
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if hasattr(socket, "SO_REUSEPORT"):
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        s.bind(("127.0.0.1", 0))
+        holders.append(s)
+        addresses.append(f"127.0.0.1:{s.getsockname()[1]}")
+
+    procs = []
+    for proc_id in range(args.processes):
+        env = dict(os.environ)
+        # The children must rebind the ports this parent is holding;
+        # production binds stay exclusive (see engine/comm.py).
+        env["BYTEWAX_TPU_REUSEPORT"] = "1"
+        env["BYTEWAX_ADDRESSES"] = ";".join(addresses)
+        env["BYTEWAX_PROCESS_ID"] = str(proc_id)
+        if args.workers_per_process:
+            env["BYTEWAX_WORKERS_PER_PROCESS"] = str(args.workers_per_process)
+        cmd = [sys.executable, "-m", "bytewax_tpu_torch.run", args.import_str]
+        if args.recovery_directory is not None:
+            cmd += ["-r", str(args.recovery_directory)]
+        if args.snapshot_interval is not None:
+            cmd += ["-s", str(args.snapshot_interval.total_seconds())]
+        if args.backup_interval is not None:
+            cmd += ["-b", str(args.backup_interval.total_seconds())]
+        if args.rescale:
+            cmd += ["--rescale"]
+        procs.append(subprocess.Popen(cmd, env=env))
+
+    exit_code = 0
+    try:
+        for proc in procs:
+            proc.wait()
+            exit_code = exit_code or proc.returncode
+        for holder in holders:
+            holder.close()
+    except KeyboardInterrupt:
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            proc.wait()
+        exit_code = 130
+    sys.exit(exit_code)
+
+
+if __name__ == "__main__":
+    # The spawner needs only the argument parser: it runs before the
+    # engine (and torch) is imported below, so the children start at
+    # once instead of after this process's import.
+    _cluster_test_main()
+    raise SystemExit(0)
+
 from dataclasses import dataclass, field
 from datetime import datetime, timedelta, timezone
 from itertools import islice
@@ -313,98 +412,3 @@ def poll_next_batch(
         if not isinstance(batch, ColumnarBatch):
             batch = list(batch)
     return batch
-
-
-def _cluster_test_main() -> None:
-    """``python -m bytewax_tpu_torch.testing``: spawn a localhost
-    cluster of subprocesses running the given flow (parity with
-    upstream bytewax ``pysrc/bytewax/testing.py:311-343``).  Each child
-    runs ``python -m bytewax_tpu_torch.run``; on one host they share
-    its one card (``cuda:0``) unless ``BYTEWAX_TPU_PLATFORM=cpu``."""
-    import os
-    import socket
-    import subprocess
-    import sys
-
-    from bytewax_tpu_torch.run import _create_arg_parser
-
-    parser = _create_arg_parser()
-    parser.prog = "python -m bytewax_tpu_torch.testing"
-    parser.add_argument(
-        "-p",
-        "--processes",
-        type=int,
-        default=1,
-        help="Number of local processes to spawn",
-    )
-    args = parser.parse_args()
-
-    if args.processes == 1 and (args.workers_per_process or 1) == 1:
-        from bytewax_tpu_torch.run import _main as run_main_cli
-
-        passthrough = [sys.argv[0], args.import_str]
-        if args.recovery_directory is not None:
-            passthrough += ["-r", str(args.recovery_directory)]
-        if args.snapshot_interval is not None:
-            passthrough += ["-s", str(args.snapshot_interval.total_seconds())]
-        if args.backup_interval is not None:
-            passthrough += ["-b", str(args.backup_interval.total_seconds())]
-        if args.rescale:
-            passthrough += ["--rescale"]
-        sys.argv = passthrough
-        run_main_cli()
-        return
-
-    # Allocate each worker's port and HOLD it (SO_REUSEPORT, not
-    # listening) until the children have spawned: closing before the
-    # child rebinds would let any concurrent process steal the port.
-    addresses = []
-    holders = []
-    for _ in range(args.processes):
-        s = socket.socket()
-        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        if hasattr(socket, "SO_REUSEPORT"):
-            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
-        s.bind(("127.0.0.1", 0))
-        holders.append(s)
-        addresses.append(f"127.0.0.1:{s.getsockname()[1]}")
-
-    procs = []
-    for proc_id in range(args.processes):
-        env = dict(os.environ)
-        # The children must rebind the ports this parent is holding;
-        # production binds stay exclusive (see engine/comm.py).
-        env["BYTEWAX_TPU_REUSEPORT"] = "1"
-        env["BYTEWAX_ADDRESSES"] = ";".join(addresses)
-        env["BYTEWAX_PROCESS_ID"] = str(proc_id)
-        if args.workers_per_process:
-            env["BYTEWAX_WORKERS_PER_PROCESS"] = str(args.workers_per_process)
-        cmd = [sys.executable, "-m", "bytewax_tpu_torch.run", args.import_str]
-        if args.recovery_directory is not None:
-            cmd += ["-r", str(args.recovery_directory)]
-        if args.snapshot_interval is not None:
-            cmd += ["-s", str(args.snapshot_interval.total_seconds())]
-        if args.backup_interval is not None:
-            cmd += ["-b", str(args.backup_interval.total_seconds())]
-        if args.rescale:
-            cmd += ["--rescale"]
-        procs.append(subprocess.Popen(cmd, env=env))
-
-    exit_code = 0
-    try:
-        for proc in procs:
-            proc.wait()
-            exit_code = exit_code or proc.returncode
-        for holder in holders:
-            holder.close()
-    except KeyboardInterrupt:
-        for proc in procs:
-            proc.terminate()
-        for proc in procs:
-            proc.wait()
-        exit_code = 130
-    sys.exit(exit_code)
-
-
-if __name__ == "__main__":
-    _cluster_test_main()

@@ -97,7 +97,27 @@ Phases, each of which raises on any failure:
    host's bucket-sizing seconds and the ledger phases.  The same flows
    run over every card where there is more than one; one card prints
    a line saying the mesh of distinct cards was not reached;
-12. report — one ``{"kernels": [...]}`` line.
+12. global  — the cluster-wide exchange tier (``BYTEWAX_TPU_DISTRIBUTED=1``):
+   the dequantize-and-merge kernel held against its plain version bit
+   for bit (every op, encoding and table dtype; frames of 8,192 and
+   16,384 rows with n below the padded length, and of one row; NaN,
+   ±inf and negative values; every case twice) and timed; then 1BRC
+   columnar batches (8·2^20 rows, 413 stations, 2 partitions) through
+   ``python -m bytewax_tpu_torch.testing -p 2`` with every process on
+   ``cuda:0`` and the gloo transport staged through pinned host
+   memory: lock-step exact, overlapped at depth 1 and 2, quantized
+   ``int8`` and ``bf16`` (device merge), ``int8`` with
+   ``BYTEWAX_TPU_WIRE=pickle`` (host fold), an all-integer workload on
+   the exact tier, the device merge and the host fold (the three
+   bit-identical), and 10,000 stations on 4 processes; the lock-step
+   flow and the wide one again on the per-process cluster tier (the
+   variable unset); each ``global`` line carries rows/s, the transport,
+   the ledger's ``gsync`` and ``collective_lane`` seconds, the h2d and
+   d2h bytes and each process's launches of the bucket, fold and merge
+   kernels.  Where there are several cards, the lock-step flow again
+   with one process a card on NCCL; one card prints a line saying that
+   was not reached;
+13. report — one ``{"kernels": [...]}`` line.
 
 Phases 5 and 6 hold their output against a float64 numpy oracle of
 the same semantics: counts, min and max exactly, means within 1e-5 of
@@ -107,7 +127,11 @@ run launched its kernel no time (phases 8 to 11 also fail on any step
 demoted to the host tier; phase 10 on any process that is not on
 ``cuda:0``, launched its kernel no time, or exited non-zero; phase 11
 on a sharded run that launched the shard-bucketing kernel no time, or
-a single-device run that launched it at all).
+a single-device run that launched it at all; phase 12 on a process
+not on ``cuda:0``, an exact run that launched no bucket or no fold
+kernel, a quantized run that launched no merge kernel or folded on the
+host without ``BYTEWAX_TPU_WIRE=pickle``, any demotion, or a child
+exiting non-zero).
 
 Every result line is JSON and carries the card's name and power
 limit.  The last line is ``{"ok": true, "device": {...}}``.
@@ -741,7 +765,7 @@ def _run_flow(flow, entry=None, expect=(), **kwargs) -> dict:
     import torch
 
     from bytewax_tpu_torch.engine import flight
-    from bytewax_tpu_torch.ops import bucket_kernel, fold_kernel, scan_kernel
+    from bytewax_tpu_torch.ops import bucket_kernel, fold_kernel, merge_kernel, scan_kernel
     from bytewax_tpu_torch.testing import run_main
 
     phases_before = dict(flight.RECORDER.phase_totals)
@@ -750,6 +774,7 @@ def _run_flow(flow, entry=None, expect=(), **kwargs) -> dict:
     fold_kernel.launches = 0
     scan_kernel.launches = 0
     bucket_kernel.launches = 0
+    merge_kernel.launches = 0
     raised = None
     t0 = time.perf_counter()
     try:
@@ -2775,8 +2800,9 @@ from bytewax_tpu_torch.engine.arrays import ArrayBatch
 from bytewax_tpu_torch.inputs import FixedPartitionedSource, StatefulSourcePartition
 from bytewax_tpu_torch.models.anomaly import anomaly_flow
 from bytewax_tpu_torch.models.brc import BrcFileSource
-from bytewax_tpu_torch.ops import fold_kernel, scan_kernel
+from bytewax_tpu_torch.ops import bucket_kernel, fold_kernel, merge_kernel, scan_kernel
 from bytewax_tpu_torch.outputs import DynamicSink, StatelessSinkPartition
+from bytewax_tpu_torch.parallel import mesh
 
 IMPORTED = time.time()
 FIRST = {}
@@ -2800,6 +2826,8 @@ def _first(name, fn):
 
 fold_kernel.fold = _first("fold", fold_kernel.fold)
 scan_kernel.scan = _first("scan", scan_kernel.scan)
+bucket_kernel.bucket = _first("bucket", bucket_kernel.bucket)
+merge_kernel.merge = _first("merge", merge_kernel.merge)
 
 
 def _report():
@@ -2821,7 +2849,15 @@ def _report():
         "first_fold_s": FIRST["fold"] - START if "fold" in FIRST else None,
         "first_scan_s": FIRST["scan"] - START if "scan" in FIRST else None,
         "end_s": (ENDED[0] if ENDED else time.time()) - START,
-        "built_a_kernel": bool(fold_kernel.build_log or scan_kernel.build_log),
+        "built_a_kernel": bool(fold_kernel.build_log or scan_kernel.build_log
+                               or bucket_kernel.build_log or merge_kernel.build_log),
+        "bucket_launches": bucket_kernel.launches,
+        "merge_launches": merge_kernel.launches,
+        "first_merge_s": FIRST["merge"] - START if "merge" in FIRST else None,
+        "first_batch_s": FIRST["batch"] - START if "batch" in FIRST else None,
+        "transport": mesh.world().describe() if mesh.world() is not None else None,
+        "counters": {k: v for k, v in flight.RECORDER.counters.items()
+                     if k.startswith(("device_transfer_bytes", "gsync_"))},
     }
     path = os.path.join(os.environ["CLUSTER_REPORTS"], f"report-{PROC}-{os.getpid()}.json")
     with open(path, "w") as f:
@@ -2930,7 +2966,56 @@ def anomaly():
     return anomaly_flow(SensorSource(), ScoredSink(), threshold=float(os.environ["CLUSTER_THRESHOLD"]))
 
 
-flow = {"brc": brc, "anomaly": anomaly}[os.environ["CLUSTER_FLOW"]]()
+STATIONS = np.array([f"station_{i:04d}" for i in range(int(os.environ.get("CLUSTER_STATIONS", "1")))])
+
+
+class _BatchPart(StatefulSourcePartition):
+    # Partition p of P of the columnar 1BRC batches: batches p, p + P, ...
+    # (dictionary-encoded int16 stations and deci-degrees; scaled by
+    # CLUSTER_SCALE, or integers where it is 0).
+    def __init__(self, p, parts, at):
+        self.ids = np.load(os.path.join(WORK, "gbrc_ids.npy"), mmap_mode="r")
+        self.deci = np.load(os.path.join(WORK, "gbrc_deci.npy"), mmap_mode="r")
+        self.rows = int(os.environ["CLUSTER_BATCH_ROWS"])
+        self.mine = list(range(p, len(self.ids) // self.rows, parts))
+        self.scale = float(os.environ["CLUSTER_SCALE"]) or None
+        self.at = at
+
+    def next_batch(self):
+        FIRST.setdefault("batch", time.time())
+        if self.at >= len(self.mine):
+            raise StopIteration()
+        lo = self.mine[self.at] * self.rows
+        self.at += 1
+        cols = {"key_id": np.array(self.ids[lo : lo + self.rows]), "value": np.array(self.deci[lo : lo + self.rows])}
+        return ArrayBatch(cols, key_vocab=STATIONS, value_scale=self.scale)
+
+    def snapshot(self):
+        return self.at
+
+
+class BatchSource(FixedPartitionedSource):
+    def __init__(self, parts):
+        self.parts = parts
+
+    def list_parts(self):
+        return [f"p{i}" for i in range(self.parts)]
+
+    def build_part(self, step_id, for_part, resume_state):
+        return _BatchPart(int(for_part[1:]), self.parts, resume_state or 0)
+
+
+def gbrc():
+    parts = int(os.environ["CLUSTER_PARTS"])
+    flow = Dataflow("global_brc")
+    s = op.input("inp", flow, BatchSource(parts))
+    s = xla.stats_final("stats", s)
+    s = op.map("fmt", s, lambda kv: (kv[0], f"{kv[0]};{kv[1][0]!r};{kv[1][1]!r};{kv[1][2]!r};{kv[1][3]}"))
+    op.output("out", s, DirSink(os.environ["CLUSTER_OUT"], file_count=parts))
+    return flow
+
+
+flow = {"brc": brc, "anomaly": anomaly, "gbrc": gbrc}[os.environ["CLUSTER_FLOW"]]()
 """
 
 
@@ -2952,11 +3037,13 @@ def _fresh_dirs(work: Path, name: str):
     return reports, out
 
 
-def _cluster_reports(reports: Path, name: str, procs: int, scan: bool = False) -> list:
+def _cluster_reports(reports: Path, name: str, procs: int, scan: bool = False,
+                     own_checks: bool = False) -> list:
     """Every process's report; fails unless each of the ``procs``
     processes reported, ran on ``cuda:0``, launched the fold (and the
-    scan, where ``scan``), demoted no step and built no kernel (phase
-    1 built them)."""
+    scan, where ``scan``; neither is checked here where the caller makes
+    ``own_checks`` of the launches), demoted no step and built no kernel
+    (phase 1 built them)."""
     reps = [json.loads(p.read_text()) for p in sorted(reports.glob("report-*.json"))]
     if sorted({r["proc_id"] for r in reps}) != list(range(procs)):
         msg = f"{name}: reports from processes {[r['proc_id'] for r in reps]}, {procs} expected"
@@ -2966,10 +3053,10 @@ def _cluster_reports(reports: Path, name: str, procs: int, scan: bool = False) -
         if r["device"] != "cuda:0":
             msg = f"{where}: device {r['device']}, not cuda:0"
             raise AssertionError(msg)
-        if r["fold_launches"] <= 0 and not scan:
+        if r["fold_launches"] <= 0 and not scan and not own_checks:
             msg = f"{where}: the segment-fold kernel was launched no time"
             raise AssertionError(msg)
-        if scan and r["scan_launches"] <= 0:
+        if scan and not own_checks and r["scan_launches"] <= 0:
             msg = f"{where}: the segmented-scan kernel was launched no time"
             raise AssertionError(msg)
         if r["demotions"]:
@@ -3664,6 +3751,515 @@ def phase_sharded(card: dict) -> dict:
     return dict(check, launches=launches)
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+
+#: The merge kernel's frames: (padded length, real rows) at 2 and 4
+#: shards of 4,095 keys, and a frame of one row.
+MERGE_FRAMES = ((8192, 8190), (16384, 16380), (8192, 1))
+MERGE_OPS = ("add", "min", "max")
+MERGE_ENCS = ("raw", "int8", "bf16")
+MERGE_DTYPES = ("int32", "float32")
+#: The merge kernel's name, as the profiler lists it.
+MERGE_KERNEL = ("merge_rows",)
+#: Timed merge shapes: a quantized float frame's sum field, its count
+#: field, and a bf16 min field, at 2 and 4 shards.
+MERGE_TIMED = (
+    ("sum_int8_f32", "add", "int8", "float32"),
+    ("count_raw_i32", "add", "raw", "int32"),
+    ("min_bf16_f32", "min", "bf16", "float32"),
+)
+#: Phase 12's flows: 1BRC columnar batches (2^20 rows, int16 stations
+#: and deci-degrees), read by P partitions, one a process.
+GLOBAL_BATCHES = 8
+GLOBAL_STATIONS = 413
+GLOBAL_WIDE_STATIONS = 10_000
+GLOBAL_WIDE_PROCS = 4
+#: Epoch interval of the phase's runs (several exchange rounds a run).
+GLOBAL_EPOCH_S = 0.05
+#: Keys a shard of the cluster-wide tier holds (its last slot is
+#: exchange scratch).
+GLOBAL_SHARD_KEYS = 4095
+#: The quantized runs' bounds, as tests/test_cluster.py sets them for
+#: values up to the largest |value| (99.9 degrees here): min and max
+#: within one quantization step, means within 5% of max(|mean|, 1).
+QUANT_TOL = {"int8": 99.9 / 254.0, "bf16": 99.9 * 2.0**-8}
+QUANT_MEAN_RTOL = 0.05
+
+
+def _merge_case(op: str, enc: str, dtype: str, padded: int, n: int, seed: int):
+    """One frame's field and a merge table of ``padded // 4095`` shards
+    of 4,096 slots: ``n`` unique real targets, the padding on shard 0's
+    scratch slot, NaN, ±inf and negative values among the rows, a third
+    of the table folded already (NaN and ±inf among those slots)."""
+    import numpy as np
+
+    from bytewax_tpu_torch.engine import xla as txla
+
+    rng = np.random.default_rng(seed)
+    size = 4096 * max(2, -(-padded // 4095))
+    real = np.setdiff1d(np.arange(size), np.arange(4095, size, 4096))
+    gidx = np.full(padded, 4095, dtype=np.int32)
+    gidx[:n] = rng.permutation(real)[:n]
+    init = {"add": 0.0, "min": float("inf"), "max": float("-inf")}[op]
+    table = txla.agg_merge_table(size, init, dtype).numpy()
+    touched = rng.choice(real, size // 3, replace=False)
+    if dtype == "float32":
+        table[touched] = rng.normal(0, 300, len(touched)).astype(np.float32)
+        table[touched[:3]] = [np.nan, np.inf, -np.inf]
+    else:
+        table[touched] = rng.integers(-(2**20), 2**20, len(touched))
+    k = min(n, 6)
+    if enc == "raw":
+        if dtype == "float32":
+            vals = rng.normal(0, 300, padded).astype(np.float32)
+            vals[:k] = [np.nan, np.inf, -np.inf, -0.0, 0.0, -1.5][:k]
+        else:
+            vals = rng.integers(-(2**31), 2**31, padded, dtype=np.int64).astype(np.int32)
+        parts = (vals,)
+    elif enc == "int8":
+        scales = (rng.random(-(-padded // 1024)) * 4).astype(np.float32)
+        scales[0] = np.inf if dtype == "float32" else 3e7
+        parts = (scales, rng.integers(-127, 128, padded).astype(np.int8))
+    else:
+        f = rng.normal(0, 3e3, padded).astype(np.float32)
+        f[:k] = [np.nan, np.inf, -np.inf, 3e9, -3e9, -2.75][:k]
+        parts = ((f.view(np.uint32) >> 16).astype(np.uint16).view(np.int16),)
+    return table, gidx, parts
+
+
+def _on_card(table, gidx, parts):
+    import torch
+
+    return (
+        torch.from_numpy(table.copy()).to(DEV),
+        torch.from_numpy(gidx).to(DEV),
+        [torch.from_numpy(p).to(DEV) for p in parts],
+    )
+
+
+def _merge_library(table, gidx, n: int, enc: str, parts, op: str) -> None:
+    """One PyTorch call that computes the merge, as a yardstick the port
+    never calls: the dequantize, then one ``scatter_reduce_``."""
+    import torch
+
+    if enc == "raw":
+        vals = parts[0][:n]
+    elif enc == "int8":
+        vals = parts[1][:n].to(torch.float32) * parts[0].repeat_interleave(1024)[:n]
+    else:
+        vals = (parts[0][:n].to(torch.int32) << 16).view(torch.float32)
+    reduce = {"add": "sum", "min": "amin", "max": "amax"}[op]
+    table.scatter_reduce_(0, gidx[:n].long(), vals.to(table.dtype), reduce)
+
+
+def _merge_bound_ms(n: int, enc: str) -> float:
+    """Bytes over the card's memory rate: each row's target, part and
+    scale read once, and its table slot read and written once."""
+    part = {"raw": 4, "int8": 1, "bf16": 2}[enc]
+    scales = 4 * -(-n // 1024) if enc == "int8" else 0
+    return (n * (4 + part + 8) + scales) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_merge_kernel(card: dict) -> dict:
+    """Phase 12 (a): hold the dequantize-and-merge kernel against its
+    plain version on the card bit for bit (every op, encoding and table
+    dtype; frames of 8,192 and 16,384 rows with n below the padded
+    length and a frame of one row; NaN, ±inf and negative values), each
+    case run twice (the two runs bit-identical too); then time it at
+    the tier's shapes."""
+    import torch
+
+    from bytewax_tpu_torch.engine import xla as txla
+    from bytewax_tpu_torch.ops import merge_kernel
+
+    cases = 0
+    for i, (op, enc, dtype) in enumerate(
+        (o, e, d) for o in MERGE_OPS for e in MERGE_ENCS for d in MERGE_DTYPES
+    ):
+        for padded, n in MERGE_FRAMES:
+            table, gidx, parts = _merge_case(op, enc, dtype, padded, n, seed=100 + i)
+            t, g, p = _on_card(table, gidx, parts)
+            want = txla.agg_merge_plain(t.clone(), g, n, enc, p, op).view(torch.int32).cpu()
+            runs = []
+            for _ in range(2):
+                got = t.clone()
+                txla.agg_merge(got, g, n, enc, p, op)
+                runs.append(got.view(torch.int32).cpu())
+            for k, got in enumerate(runs):
+                if not torch.equal(got, want):
+                    bad = int((got != want).sum())
+                    msg = f"agg_merge {op}/{enc}/{dtype}/{padded}/{n}, run {k}: {bad} slots differ in their bits"
+                    raise AssertionError(msg)
+            cases += 1
+    _emit(card, "merge_kernel", cases=cases, runs_per_case=2, frames=[list(f) for f in MERGE_FRAMES],
+          ops=list(MERGE_OPS), encodings=list(MERGE_ENCS), table_dtypes=list(MERGE_DTYPES),
+          bit_exact=True, max_abs_err=0.0)
+
+    times = {}
+    for padded, n in MERGE_FRAMES[:2]:
+        shards = padded // 4096
+        for label, op, enc, dtype in MERGE_TIMED:
+            table, gidx, parts = _merge_case(op, enc, dtype, padded, n, seed=7)
+            t, g, p = _on_card(table, gidx, parts)
+            lib_t = t.clone()
+
+            def call(t=t, g=g, n=n, enc=enc, p=p, op=op):
+                merge_kernel.merge(t, g, n, enc, p, op)
+
+            def launch(t=t, g=g, n=n, enc=enc, p=p, op=op):
+                merge_kernel.launch(t, g, n, enc, p, op)
+
+            def plain(t=t, g=g, n=n, enc=enc, p=p, op=op):
+                txla.agg_merge_plain(t, g, n, enc, p, op)
+
+            def library(t=lib_t, g=g, n=n, enc=enc, p=p, op=op):
+                _merge_library(t, g, n, enc, p, op)
+
+            prof = _profiled(launch, 200, names=MERGE_KERNEL)
+            host = _host_us_alternating({"call": call, "launch": launch}, 200)
+            tm = {
+                "ms": prof["ms"],
+                "graph_ms": _graph_ms(launch),
+                "host_us": host["call"],
+                "launch_host_us": host["launch"],
+                "plain_ms": _time_ms(plain, 20),
+                "bound_ms": _merge_bound_ms(n, enc),
+                "bound_by": "bytes",
+                "library_ms": _time_ms(library, 50),
+            }
+            name = f"{label}_{shards}sh"
+            times[name] = tm
+            _emit(card, "merge_kernel_time", shape=name, rows=n, padded=padded, shards=shards, op=op,
+                  encoding=enc, table_dtype=dtype, launches_per_call=prof["launches_per_call"],
+                  host_launches_per_call=prof["host_launches_per_call"],
+                  host_memsets_per_call=prof["host_memsets_per_call"],
+                  library="the dequantize, then one scatter_reduce_", **tm)
+    return {"times": times}
+
+
+def _global_data(work: Path, n_stations: int, seed: int):
+    """Phase 12's 1BRC batches in ``work`` (the children map them);
+    returns the stations and the float64 oracle in deci-degrees."""
+    import numpy as np
+
+    from bytewax_tpu_torch.models.brc import generate_batches
+
+    work.mkdir()
+    batches = generate_batches(GLOBAL_BATCHES * BATCH_ROWS, BATCH_ROWS, n_stations, seed=seed)
+    ids = np.concatenate([b.numpy("key_id") for b in batches])
+    deci = np.concatenate([b.numpy("value") for b in batches])
+    np.save(work / "gbrc_ids.npy", ids)
+    np.save(work / "gbrc_deci.npy", deci)
+    stations = batches[0].key_vocab
+    return stations, _brc_deci_oracle(stations, ids.astype(np.int64), deci.astype(np.int64))
+
+
+def _largest_shard(stations, procs: int) -> int:
+    """Keys of the fullest shard of the cluster-wide tier with one lane
+    and one device a process: a key's shard is its lane's process,
+    ``adler32(key) % procs`` (``GlobalAggState._owner_shard``)."""
+    import zlib
+
+    import numpy as np
+
+    owners = [zlib.adler32(str(s).encode()) % procs for s in stations]
+    return int(np.bincount(owners, minlength=procs).max())
+
+
+def _read_global_out(name: str, out: Path) -> dict:
+    """The union of the processes' files: ``{station: (count, min,
+    mean, max)}``, each station once."""
+    got = {}
+    for path in sorted(out.iterdir()):
+        for line in path.read_text().splitlines():
+            station, mn, mean, mx, count = line.split(";")
+            if station in got:
+                msg = f"{name}: station {station} emitted twice"
+                raise AssertionError(msg)
+            got[station] = (int(count), float(mn), float(mean), float(mx))
+    return got
+
+
+def _check_global(name: str, got: dict, want: dict, scale: float, quant: str) -> dict:
+    """A run's output against the float64 oracle: counts exact; min and
+    max exact after rounding and means within 1e-5 of the mean |value|
+    (phase 10's tolerances), or within the quantized bounds where the
+    floats rode ``quant``; returns the worst errors."""
+    if set(got) != set(want):
+        msg = f"{name}: {len(got)} stations out, {len(want)} expected"
+        raise AssertionError(msg)
+    unit = 10.0 if scale else 1.0  # output units a deci-degree
+    worst = {"mean": 0.0, "min_max": 0.0}
+    for station, (count, mn, mx, mean, mean_abs) in want.items():
+        gcount, gmn, gmean, gmx = got[station]
+        if gcount != count:
+            msg = f"{name}, {station}: count {gcount} != {count}"
+            raise AssertionError(msg)
+        gmean_deg = gmean * unit / 10.0
+        if quant == "off" or not scale:
+            if (round(gmn * unit), round(gmx * unit)) != (mn, mx):
+                msg = f"{name}, {station}: min/max {gmn}/{gmx} against {mn}/{mx} deci"
+                raise AssertionError(msg)
+            worst["mean"] = max(worst["mean"], _check_mean(gmean_deg, mean, mean_abs, f"{name}, {station}"))
+            continue
+        err = max(abs(gmn - mn / 10.0), abs(gmx - mx / 10.0))
+        merr = abs(gmean - mean)
+        if err > QUANT_TOL[quant] or merr > QUANT_MEAN_RTOL * max(abs(mean), 1.0):
+            msg = f"{name}, {station}: {got[station]} against min {mn}, max {mx} deci, mean {mean} ({quant})"
+            raise AssertionError(msg)
+        worst["min_max"] = max(worst["min_max"], err)
+        worst["mean"] = max(worst["mean"], merr)
+    return worst
+
+
+def _same_floats(name: str, got: dict, other: dict, what: str) -> bool:
+    """Two exact runs of the same float rows: the same counts, min and
+    max, and means within 1e-5 relative (float32 sums fold in an order
+    that depends on the kernel's atomics and on how the rows split into
+    rounds); returns whether every value is also the same."""
+    if set(got) != set(other):
+        msg = f"{name}: {len(got)} stations, {len(other)} in {what}"
+        raise AssertionError(msg)
+    for station, (count, mn, mean, mx) in other.items():
+        g = got[station]
+        if (g[0], g[1], g[3]) != (count, mn, mx) or abs(g[2] - mean) > 1e-5 * max(abs(mean), 1.0):
+            msg = f"{name}, {station}: {g} against {other[station]} in {what}"
+            raise AssertionError(msg)
+    return got == other
+
+
+def _rounds(err: str, proc: int) -> int:
+    """Exchange rounds that process ``proc`` printed (the tier's debug
+    line; peers share the stream)."""
+    return err.count(f"global-exchange: proc {proc} flushed")
+
+
+def _global_reports(name: str, reports: Path, procs: int, err: str, distributed: bool,
+                    quant: str, host_fold: bool) -> list:
+    """Every process's report, held to the phase's rules: on
+    ``cuda:0``, no demotion, and, on the cluster-wide tier, a flush and
+    the transport printed by each process, the bucket and fold kernels
+    launched (exact) or the merge kernel launched and the merge never
+    demoted to the host (quantized, unless ``host_fold``)."""
+    reps = _cluster_reports(reports, name, procs, own_checks=True)
+    for r in reps:
+        where = f"{name}, process {r['proc_id']} (pid {r['pid']})"
+        rounds = _rounds(err, r["proc_id"])
+        if not distributed:
+            if rounds or r["transport"] is not None or r["fold_launches"] <= 0:
+                msg = f"{where}: the per-process tier ran {rounds} exchange rounds, {r['fold_launches']} folds"
+                raise AssertionError(msg)
+            continue
+        if not rounds or r["transport"] is None or f"transport {r['transport']}" not in err:
+            msg = f"{where}: {rounds} exchange rounds printed, transport {r['transport']}"
+            raise AssertionError(msg)
+        host_bytes = r["counters"].get("gsync_merge_host_bytes", 0)
+        if quant == "off" and (r["bucket_launches"] <= 0 or r["fold_launches"] <= 0):
+            msg = f"{where}: bucket {r['bucket_launches']}, fold {r['fold_launches']} launches on the exact tier"
+            raise AssertionError(msg)
+        if quant != "off" and host_fold != (host_bytes > 0):
+            msg = f"{where}: host fold bytes {host_bytes} (host fold expected: {host_fold})"
+            raise AssertionError(msg)
+        if quant != "off" and not host_fold and r["merge_launches"] <= 0:
+            msg = f"{where}: the merge kernel was launched no time"
+            raise AssertionError(msg)
+    return reps
+
+
+def _global_run(card: dict, work: Path, data: Path, name: str, procs: int, stations: int,
+                scale: float, want: dict, distributed: bool = True, **knobs) -> dict:
+    """One flow through ``python -m bytewax_tpu_torch.testing -p procs``
+    with every process on ``cuda:0``; emits its ``global`` line and
+    returns the output, the launches of each kernel and the transport."""
+    reports, out = _fresh_dirs(work, name)
+    env = _cluster_env(data, reports, out, CLUSTER_FLOW="gbrc", CLUSTER_PARTS=procs,
+                       CLUSTER_STATIONS=stations, CLUSTER_BATCH_ROWS=BATCH_ROWS, CLUSTER_SCALE=scale,
+                       BYTEWAX_TPU_ACCEL=1, BYTEWAX_TPU_GLOBAL_EXCHANGE_DEBUG=1, **knobs)
+    for knob in ("BYTEWAX_TPU_GSYNC_OVERLAP", "BYTEWAX_TPU_GSYNC_DEPTH", "BYTEWAX_TPU_GSYNC_QUANT",
+                 "BYTEWAX_TPU_WIRE", "BYTEWAX_TPU_DISTRIBUTED"):
+        if knob not in knobs:
+            env.pop(knob, None)
+    if distributed:
+        env["BYTEWAX_TPU_DISTRIBUTED"] = "1"
+    cmd = [sys.executable, "-m", "bytewax_tpu_torch.testing", f"{work / 'cluster_flows.py'}:flow",
+           "-p", str(procs), "-s", str(GLOBAL_EPOCH_S)]
+    seconds, err = _run_cluster_cmd(name, cmd, env, work)
+    quant = knobs.get("BYTEWAX_TPU_GSYNC_QUANT", "off")
+    host_fold = knobs.get("BYTEWAX_TPU_WIRE") == "pickle"
+    reps = sorted(_global_reports(name, reports, procs, err, distributed, quant, host_fold),
+                  key=lambda r: r["proc_id"])
+    got = _read_global_out(name, out)
+    worst = _check_global(name, got, want, scale, quant)
+    rows = GLOBAL_BATCHES * BATCH_ROWS
+    after = max(r["end_s"] for r in reps) - max(r["first_batch_s"] for r in reps)
+    launches = {key: [r[f"{key}_launches"] for r in reps] for key in ("bucket", "fold", "merge")}
+    transports = sorted({r["transport"] for r in reps if r["transport"]})
+    _emit(
+        card,
+        "global",
+        run=name,
+        entry=f"python -m bytewax_tpu_torch.testing -p {procs}",
+        tier="cluster-wide exchange" if distributed else "per-process cluster",
+        processes=procs,
+        rows=rows,
+        stations=stations,
+        values="deci-degrees x 0.1" if scale else "integer deci-degrees",
+        knobs={k: str(v) for k, v in knobs.items()},
+        transport=transports[0] if len(transports) == 1 else transports or None,
+        seconds=seconds,
+        rows_per_s=rows / seconds,
+        # From the last process's first batch to the last one's end, each
+        # counted from its own process's start (they start together).
+        rows_per_s_after_startup=rows / after,
+        exchange_rounds=[_rounds(err, r["proc_id"]) for r in reps],
+        gsync_s=[r["phase_seconds"].get("gsync", 0.0) for r in reps],
+        collective_lane_s=[r["phase_seconds"].get("collective_lane", 0.0) for r in reps],
+        device_s=[r["phase_seconds"].get("device", 0.0) for r in reps],
+        h2d_bytes=[r["counters"].get("device_transfer_bytes_h2d", 0) for r in reps],
+        d2h_bytes=[r["counters"].get("device_transfer_bytes_d2h", 0) for r in reps],
+        merge_h2d_bytes=[r["counters"].get("gsync_merge_h2d_bytes", 0) for r in reps],
+        merge_host_bytes=[r["counters"].get("gsync_merge_host_bytes", 0) for r in reps],
+        bucket_launches=launches["bucket"],
+        fold_launches=launches["fold"],
+        merge_launches=launches["merge"],
+        max_mean_err=worst["mean"],
+        max_min_max_err=worst["min_max"],
+        cpu_count=os.cpu_count(),
+        **_child_fields(reps),
+    )
+    return {"out": got, "launches": {k: sum(v) for k, v in launches.items()}, "seconds": seconds}
+
+
+#: Phase 12's runs: (name, processes, wide data, integer values, the
+#: cluster-wide tier, knobs).
+GLOBAL_RUNS = (
+    ("global_exact", 2, False, False, True, {}),
+    ("global_overlap_d1", 2, False, False, True, {"BYTEWAX_TPU_GSYNC_OVERLAP": 1}),
+    ("global_overlap_d2", 2, False, False, True,
+     {"BYTEWAX_TPU_GSYNC_OVERLAP": 1, "BYTEWAX_TPU_GSYNC_DEPTH": 2}),
+    ("global_int8", 2, False, False, True, {"BYTEWAX_TPU_GSYNC_QUANT": "int8"}),
+    ("global_bf16", 2, False, False, True, {"BYTEWAX_TPU_GSYNC_QUANT": "bf16"}),
+    ("global_int8_pickle", 2, False, False, True,
+     {"BYTEWAX_TPU_GSYNC_QUANT": "int8", "BYTEWAX_TPU_WIRE": "pickle"}),
+    ("global_ints_exact", 2, False, True, True, {}),
+    ("global_ints_int8_device", 2, False, True, True,
+     {"BYTEWAX_TPU_GSYNC_QUANT": "int8", "BYTEWAX_TPU_GSYNC_OVERLAP": 1, "BYTEWAX_TPU_GSYNC_DEPTH": 2}),
+    ("global_ints_int8_host", 2, False, True, True,
+     {"BYTEWAX_TPU_GSYNC_QUANT": "int8", "BYTEWAX_TPU_WIRE": "pickle"}),
+    ("global_wide_p4", GLOBAL_WIDE_PROCS, True, False, True, {}),
+    ("per_process_p2", 2, False, False, False, {}),
+    ("per_process_wide_p4", GLOBAL_WIDE_PROCS, True, False, False, {}),
+)
+
+
+def _global_cards(card: dict, work: Path, data: Path, want: dict) -> None:
+    """Where the host has several cards: the lock-step flow again with
+    one process a card (``python -m bytewax_tpu_torch.run -a … -i p``,
+    each child under ``CUDA_VISIBLE_DEVICES=p``), on NCCL; else one
+    line saying it was not reached."""
+    import socket
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        _emit(card, "global_cards", reached=False,
+              reason="one card: torch.cuda.device_count() == 1, so no process had a card of its own")
+        return
+    procs = min(n, GLOBAL_WIDE_PROCS)
+    name = f"global_cards_p{procs}"
+    reports, out = _fresh_dirs(work, name)
+    ports = []
+    for _ in range(procs):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    addrs = ";".join(f"127.0.0.1:{p}" for p in ports)
+    env = _cluster_env(data, reports, out, CLUSTER_FLOW="gbrc", CLUSTER_PARTS=procs,
+                       CLUSTER_STATIONS=GLOBAL_STATIONS, CLUSTER_BATCH_ROWS=BATCH_ROWS, CLUSTER_SCALE=0.1,
+                       BYTEWAX_TPU_ACCEL=1, BYTEWAX_TPU_DISTRIBUTED=1, BYTEWAX_TPU_GLOBAL_EXCHANGE_DEBUG=1)
+    t0 = time.perf_counter()
+    children = [
+        subprocess.Popen(
+            [sys.executable, "-m", "bytewax_tpu_torch.run", f"{work / 'cluster_flows.py'}:flow",
+             "-a", addrs, "-i", str(p), "-s", str(GLOBAL_EPOCH_S)],
+            env=dict(env, CUDA_VISIBLE_DEVICES=str(p), BYTEWAX_PROCESS_ID=str(p)), cwd=work,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        )
+        for p in range(procs)
+    ]
+    errs = []
+    try:
+        errs = [c.communicate(timeout=CLUSTER_TIMEOUT_S)[1] for c in children]
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+    seconds = time.perf_counter() - t0
+    codes = [c.returncode for c in children]
+    if any(codes):
+        msg = f"{name}: exits {codes}\n" + "\n".join(e[-2000:] for e in errs)
+        raise AssertionError(msg)
+    reps = _global_reports(name, reports, procs, "\n".join(errs), True, "off", False)
+    if any(not r["transport"].startswith("nccl") for r in reps):
+        msg = f"{name}: transports {[r['transport'] for r in reps]}, NCCL expected"
+        raise AssertionError(msg)
+    worst = _check_global(name, _read_global_out(name, out), want, 0.1, "off")
+    rows = GLOBAL_BATCHES * BATCH_ROWS
+    _emit(card, "global_cards", reached=True, run=name, processes=procs, rows=rows,
+          transport=reps[0]["transport"], seconds=seconds, rows_per_s=rows / seconds,
+          max_mean_err=worst["mean"],
+          bucket_launches=[r["bucket_launches"] for r in reps],
+          fold_launches=[r["fold_launches"] for r in reps])
+
+
+def phase_global(card: dict) -> dict:
+    """Phase 12: the merge kernel against its plain version, timed; then
+    the cluster-wide exchange tier's flows on the one card (one
+    temporary directory, removed at the end), each against its oracle,
+    beside the per-process cluster tier; returns the kernel times and
+    each run's launches of each kernel."""
+    import tempfile
+
+    check = phase_merge_kernel(card)
+    launches = {}
+    outs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_global_") as tmp:
+        work = Path(tmp)
+        (work / "cluster_flows.py").write_text(CLUSTER_FLOW_MODULE)
+        narrow, wide = work / "data_413", work / "data_10000"
+        stations, want = _global_data(narrow, GLOBAL_STATIONS, seed=0)
+        wide_stations, wide_want = _global_data(wide, GLOBAL_WIDE_STATIONS, seed=1)
+        largest = _largest_shard(wide_stations, GLOBAL_WIDE_PROCS)
+        if largest >= GLOBAL_SHARD_KEYS:
+            msg = f"10,000 stations over {GLOBAL_WIDE_PROCS} shards: one holds {largest} keys"
+            raise AssertionError(msg)
+        _emit(card, "global_placement", stations=GLOBAL_WIDE_STATIONS, shards=GLOBAL_WIDE_PROCS,
+              largest_shard_keys=largest, shard_capacity=GLOBAL_SHARD_KEYS)
+        for name, procs, is_wide, ints, distributed, knobs in GLOBAL_RUNS:
+            run = _global_run(card, work, wide if is_wide else narrow, name, procs,
+                              GLOBAL_WIDE_STATIONS if is_wide else GLOBAL_STATIONS, 0 if ints else 0.1,
+                              wide_want if is_wide else want, distributed=distributed, **knobs)
+            outs[name] = run["out"]
+            launches[name] = run["launches"]
+        same = {
+            "global_overlap_d1": _same_floats("global_overlap_d1", outs["global_overlap_d1"],
+                                              outs["global_exact"], "the lock-step run"),
+            "global_overlap_d2": _same_floats("global_overlap_d2", outs["global_overlap_d2"],
+                                              outs["global_exact"], "the lock-step run"),
+        }
+        for name in ("global_ints_int8_device", "global_ints_int8_host"):
+            if outs[name] != outs["global_ints_exact"]:
+                msg = f"{name}: output differs from the exact tier's on integer values"
+                raise AssertionError(msg)
+        _emit(card, "global_compare", float_runs_identical_to_lockstep=same,
+              integer_runs_identical=["global_ints_exact", "global_ints_int8_device", "global_ints_int8_host"])
+        _global_cards(card, work, narrow, want)
+    return dict(check, launches=launches)
+
+
 def main() -> int:
     if not (HERE / "bytewax_tpu_torch" / "csrc" / "segment_fold.cu").exists():
         print(
@@ -3683,10 +4279,10 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
-    from bytewax_tpu_torch.ops import bucket_kernel, fold_kernel, scan_kernel
+    from bytewax_tpu_torch.ops import bucket_kernel, fold_kernel, merge_kernel, scan_kernel
 
     # One nvcc for each source, started together.
-    kernels = (fold_kernel, scan_kernel, bucket_kernel)
+    kernels = (fold_kernel, scan_kernel, bucket_kernel, merge_kernel)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         for built in [pool.submit(mod.build) for mod in kernels]:
@@ -3735,9 +4331,17 @@ def main() -> int:
         scan_launches[path] = counts["segment_scan"]
         bucket_launches[path] = counts["shard_bucket"]
 
+    glob = phase_global(card)
+    merge_launches = {}
+    for path, counts in glob["launches"].items():
+        launches[path] = counts["fold"]
+        bucket_launches[path] = counts["bucket"]
+        merge_launches[path] = counts["merge"]
+
     times = shapes["brc_413"]
     scan_times = scan["times"]["welford"]
     bucket_times = sharded["times"]["brc_10000"]
+    merge_times = glob["times"]["sum_int8_f32_2sh"]
     keys = ("ms", "host_us", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card["line"])
     print(
@@ -3809,6 +4413,30 @@ def main() -> int:
                         "shapes": {
                             name: {key: t[key] for key in keys + ("graph_ms",)}
                             for name, t in sharded["times"].items()
+                        },
+                    },
+                    {
+                        "name": "agg_merge",
+                        "route": "cuda",
+                        "source": "bytewax_tpu_torch/csrc/agg_merge.cu",
+                        "replaces": "bytewax_tpu/engine/xla.py:657",
+                        "launches": sum(merge_launches.values()),
+                        "launches_by_path": merge_launches,
+                        "max_abs_err": 0.0,
+                        "max_err_is": "bit-exact against the plain version in every case, twice",
+                        "ms": merge_times["ms"],
+                        "graph_ms": merge_times["graph_ms"],
+                        "host_us": merge_times["host_us"],
+                        "launch_host_us": merge_times["launch_host_us"],
+                        "plain_ms": merge_times["plain_ms"],
+                        "bound_ms": merge_times["bound_ms"],
+                        "bound_by": merge_times["bound_by"],
+                        "library_ms": merge_times["library_ms"],
+                        "library": "the dequantize, then one scatter_reduce_",
+                        "shape": "sum field of an int8 frame, 8,190 rows, 2 shards, float32 table",
+                        "shapes": {
+                            name: {key: t[key] for key in keys + ("graph_ms", "launch_host_us")}
+                            for name, t in glob["times"].items()
                         },
                     },
                 ]

@@ -9,8 +9,9 @@ Children run ``python -m bytewax_tpu_torch.testing`` /
 device tier otherwise needs a CUDA card) and ``BYTEWAX_TPU_ACCEL=0``
 for a light start, except where the device tier is the point.  The
 cases that need the distributed runtime (``BYTEWAX_TPU_DISTRIBUTED=1``:
-the jax distributed init, the global-mesh exchange and the five gsync
-cases) wait for ROADMAP queue A item 9.
+the distributed init, the global-mesh exchange and the five gsync
+cases) are in ``tests/test_torch_global_exchange.py`` and
+``tests/test_torch_gsync_quant.py``.
 """
 
 import os

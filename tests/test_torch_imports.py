@@ -173,15 +173,92 @@ def test_unknown_platform_is_refused(monkeypatch):
 
 
 def test_distributed_tier_is_not_ported_yet(monkeypatch):
-    from bytewax_tpu_torch.engine.sharded_state import make_agg_state
+    """The name dates from the port's refusal of
+    ``BYTEWAX_TPU_DISTRIBUTED=1`` (ROADMAP A9b, ported since).  With the
+    variable set, no driver or one process builds no cluster-wide tier:
+    ``make_agg_state`` and ``make_scan_state`` give the tiers the JAX
+    package gives (sharded over 8 devices, or one device under
+    ``BYTEWAX_TPU_SHARD=0``), and scans never look at the variable."""
+    from bytewax_tpu.engine import sharded_state as ref
+    from bytewax_tpu.ops.scan import WelfordZScore as RefWelford
+    from bytewax_tpu_torch.engine import sharded_state as port
+    from bytewax_tpu_torch.ops.scan import WelfordZScore
+
+    class _OneProcess:
+        comm = None
+        store = None
+        proc_count = 1
 
     monkeypatch.setenv("BYTEWAX_TPU_DISTRIBUTED", "1")
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        make_agg_state("sum")
-    monkeypatch.delenv("BYTEWAX_TPU_DISTRIBUTED")
-    state = make_agg_state("sum")
+    monkeypatch.setenv(utils.VIRTUAL_DEVICES_ENV, "8")  # the reference's 8 CPU devices
+    for shard in ("auto", "0"):
+        monkeypatch.setenv("BYTEWAX_TPU_SHARD", shard)
+        for driver in (None, _OneProcess()):
+            got = type(port.make_agg_state("sum", driver=driver)).__name__
+            assert got == type(ref.make_agg_state("sum", driver=driver)).__name__
+            assert got == ("ShardedAggState" if shard == "auto" else "DeviceAggState")
+        scan = type(port.make_scan_state(WelfordZScore(2.0))).__name__
+        assert scan == type(ref.make_scan_state(RefWelford(2.0))).__name__
+    state = port.make_agg_state("sum")
     state.update(np.array(["k"]), np.array([2.5]))
     assert state.finalize() == [("k", 2.5)]
+
+
+def test_distributed_setting_in_one_process_runs_like_the_reference(monkeypatch):
+    """A one-process ``run_main`` with ``BYTEWAX_TPU_DISTRIBUTED=1``
+    gives the JAX package's output for the same flow."""
+    import bytewax_tpu.operators as rop
+    from bytewax_tpu import xla as rxla
+    from bytewax_tpu.dataflow import Dataflow as RefDataflow
+    from bytewax_tpu.testing import TestingSink as RefSink
+    from bytewax_tpu.testing import TestingSource as RefSource
+    from bytewax_tpu.testing import run_main as ref_run_main
+
+    monkeypatch.setenv("BYTEWAX_TPU_DISTRIBUTED", "1")
+    items = [(f"k{i % 9}", float(i % 13) - 4.5) for i in range(500)]
+    outs = []
+    for o, x, df, src, sink, run in (
+        (op, xla, Dataflow, TestingSource, TestingSink, run_main),
+        (rop, rxla, RefDataflow, RefSource, RefSink, ref_run_main),
+    ):
+        out = []
+        flow = df("dist_one_process")
+        s = o.input("inp", flow, src(items, batch_size=64))
+        s = x.stats_final("stats", s)
+        o.output("out", s, sink(out))
+        run(flow)
+        outs.append(sorted(out))
+    assert outs[0] == outs[1]
+    assert len(outs[0]) == 9
+
+
+def test_store_with_overlap_refuses_the_cluster_tier(monkeypatch):
+    """Where the JAX package takes its store-composable overlap (a
+    recovery store, ``BYTEWAX_TPU_GSYNC_OVERLAP=1`` and an eligible
+    distributed cluster), the port refuses, naming ROADMAP A9c; it never
+    falls through to a per-process tier, which would deadlock the peers
+    that built the cluster tier.  Not eligible, it falls through as the
+    JAX package does."""
+    import torch.distributed as dist
+
+    from bytewax_tpu_torch.engine import sharded_state as port
+    from bytewax_tpu_torch.parallel import mesh
+
+    class _Cluster:
+        comm = object()
+        store = object()
+        proc_count = 2
+
+    monkeypatch.setenv("BYTEWAX_TPU_DISTRIBUTED", "1")
+    monkeypatch.setenv("BYTEWAX_TPU_GSYNC_OVERLAP", "1")
+    monkeypatch.setenv("BYTEWAX_TPU_SHARD", "0")
+    assert isinstance(port.make_agg_state("sum", driver=_Cluster()), DeviceAggState)
+    monkeypatch.setattr(mesh, "distributed_is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    with pytest.raises(NotImplementedError, match="A9c"):
+        port.make_agg_state("sum", driver=_Cluster())
+    monkeypatch.setenv("BYTEWAX_TPU_GSYNC_OVERLAP", "0")
+    assert isinstance(port.make_agg_state("sum", driver=_Cluster()), DeviceAggState)
 
 
 def test_shard_setting_picks_the_sharded_tiers(monkeypatch):

@@ -1,5 +1,6 @@
-"""The hand-written segment-fold kernel against its plain PyTorch
-version, on the card.
+"""The hand-written kernels (segment fold, segmented scan, shard
+bucketing, dequantize-and-merge) against their plain PyTorch versions,
+on the card.
 
 Marked ``cuda``: without a CUDA card every case skips (the kernel has
 no CPU mode; the CPU tests hold the plain version to the JAX package).
@@ -601,3 +602,91 @@ def test_sharded_states_over_every_card_match_the_cpu(dev, repeat):
         pytest.skip("needs two or more CUDA cards")
     cards = [torch.device("cuda", i) for i in range(n) for _ in range(repeat)]
     _card_mesh_against_the_cpu(make_mesh(devices=cards))
+
+
+# -- the dequantize-and-merge kernel (csrc/agg_merge.cu) --------------------
+
+MERGE_OPS = ("add", "min", "max")
+MERGE_ENCS = ("raw", "int8", "bf16")
+MERGE_DTYPES = ("int32", "float32")
+
+
+def _merge_case(op, enc, dtype, padded, n, seed):
+    """One frame's field and a table (``padded // 4095`` shards of 4096
+    slots): unique real targets, padding aimed at shard 0's scratch
+    slot, NaN, ±inf and negative values among the rows, some slots of
+    the table already folded (a NaN one among them)."""
+    from bytewax_tpu_torch.engine import xla as txla
+
+    rng = np.random.default_rng(seed)
+    size = 4096 * max(2, -(-padded // 4095))
+    gidx = np.full(padded, 4095, dtype=np.int32)
+    gidx[:n] = rng.permutation(np.setdiff1d(np.arange(size), np.arange(4095, size, 4096)))[:n]
+    init = {"add": 0.0, "min": float("inf"), "max": float("-inf")}[op]
+    table = txla.agg_merge_table(size, init, dtype).numpy()
+    touched = rng.choice(size, size // 3, replace=False)
+    touched = touched[touched % 4096 != 4095]
+    if dtype == "float32":
+        table[touched] = rng.normal(0, 300, len(touched)).astype(np.float32)
+        table[touched[:3]] = [np.nan, np.inf, -np.inf]
+    else:
+        table[touched] = rng.integers(-(2**20), 2**20, len(touched))
+    if enc == "raw":
+        if dtype == "float32":
+            vals = rng.normal(0, 300, padded).astype(np.float32)
+            vals[: min(n, 6)] = [np.nan, np.inf, -np.inf, -0.0, 0.0, -1.5][: min(n, 6)]
+        else:
+            vals = rng.integers(-(2**31), 2**31, padded, dtype=np.int64).astype(np.int32)
+        parts = (vals,)
+    elif enc == "int8":
+        scales = (rng.random(-(-padded // 1024)) * 4).astype(np.float32)
+        scales[0] = np.inf if dtype == "float32" else 3e7
+        q = rng.integers(-127, 128, padded).astype(np.int8)
+        parts = (scales, q)
+    else:
+        f = rng.normal(0, 3e3, padded).astype(np.float32)
+        f[: min(n, 6)] = [np.nan, np.inf, -np.inf, 3e9, -3e9, -2.75][: min(n, 6)]
+        parts = ((f.view(np.uint32) >> 16).astype(np.uint16).view(np.int16),)
+    return table, gidx, parts
+
+
+def _bits(t):
+    return t.cpu().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", MERGE_DTYPES)
+@pytest.mark.parametrize("enc", MERGE_ENCS)
+@pytest.mark.parametrize("op", MERGE_OPS)
+def test_merge_kernel_matches_plain_bit_for_bit(dev, op, enc, dtype):
+    from bytewax_tpu_torch.engine import xla as txla
+    from bytewax_tpu_torch.ops import merge_kernel
+
+    for padded, n in ((8192, 8190), (16384, 12001), (8192, 1)):
+        table, gidx, parts = _merge_case(op, enc, dtype, padded, n, seed=padded + n)
+        g = torch.from_numpy(gidx).to(dev)
+        p = [torch.from_numpy(a).to(dev) for a in parts]
+        want = txla.agg_merge_plain(torch.from_numpy(table.copy()).to(dev), g, n, enc, p, op)
+        outs = []
+        for _ in range(2):
+            before = merge_kernel.launches
+            got = txla.agg_merge(torch.from_numpy(table.copy()).to(dev), g, n, enc, p, op)
+            assert merge_kernel.launches == before + 1
+            outs.append(_bits(got))
+        assert torch.equal(outs[0], outs[1]), "two runs differ"
+        assert torch.equal(outs[0], _bits(want)), (op, enc, dtype, padded, n)
+
+
+@pytest.mark.cuda
+def test_merge_kernel_refuses_a_repeated_target(dev):
+    from bytewax_tpu_torch.engine import xla as txla
+
+    table = txla.agg_merge_table(8192, 0.0, "float32", dev)
+    gidx = torch.tensor([3, 7, 3], dtype=torch.int32, device=dev)
+    vals = torch.ones(3, dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="repeat"):
+        txla.agg_merge(table, gidx, 3, "raw", [vals], "add")
+    with pytest.raises(ValueError, match="outside"):
+        txla.agg_merge(table, torch.tensor([9000], dtype=torch.int32, device=dev), 1, "raw", [vals], "add")
+    # The padding past n is not read: a repeated target there is fine.
+    txla.agg_merge(table, gidx, 2, "raw", [vals], "add")

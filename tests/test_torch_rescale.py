@@ -761,12 +761,12 @@ def test_live_reconfigure_refused_without_recovery_store(
 
 
 def test_live_reconfigure_refused_under_distributed_flag(tmp_path, monkeypatch, caplog):
-    """With ``BYTEWAX_TPU_DISTRIBUTED=1`` a one-process cluster runs (the
-    knob is refused at startup only with more than one process), and a
-    live membership change is refused in the port's own terms (no
-    distributed device runtime yet): the request is consumed, no
-    reconfiguration happens, and the host-tier run completes with its
-    oracle's output."""
+    """With ``BYTEWAX_TPU_DISTRIBUTED=1`` a one-process cluster runs (it
+    joins no distributed runtime), and a live membership change is
+    refused for the JAX package's reason, in the port's terms: the
+    ``torch.distributed`` world size is fixed at initialization.  The
+    request is consumed, no reconfiguration happens, and the host-tier
+    run completes with its oracle's output."""
     import logging
 
     from bytewax_tpu_torch.engine.driver import request_reconfigure
@@ -805,7 +805,7 @@ def test_live_reconfigure_refused_under_distributed_flag(tmp_path, monkeypatch, 
             recovery_config=RecoveryConfig(str(db)),
         )
     assert status is None and fired[0]
-    assert "no distributed device runtime" in caplog.text
+    assert "cannot change world size in-process" in caplog.text
     assert "jax" not in caplog.text
     assert flight.RECORDER.counters.get("reconfigure_count", 0) == reconfs_before
     sums, want = {}, []
