@@ -1324,9 +1324,14 @@ class GlobalAggState:
         rest of the run (the same on every process: the frames are the
         same).  Device-bound parts keep their length: the port has no
         shape ladder (``engine/batching.py``), and the kernel takes any
-        row count.  Each frame's real targets are asserted unique: the
-        merge kernel folds one row a slot and refuses a frame that
-        repeats one."""
+        row count.  A device-bound round is packed into one buffer
+        (:func:`~bytewax_tpu_torch.engine.xla.pack_merge_round`, pinned
+        where the tables lie on a card), each field's table dtype
+        decided once for the round.  Each frame's real targets are
+        asserted unique: the merge kernel folds one row a slot and
+        refuses a frame that repeats one."""
+        from bytewax_tpu_torch.engine import xla as _xla
+
         decoded = []
         for frames in peer_frames:
             for frame in frames or ():
@@ -1339,8 +1344,9 @@ class GlobalAggState:
             self._demote_merge()
         kid_map = self.key_to_kid
         size = self.n_shards * self.cap_per_shard
+        names = list(self.kind.fields)
+        dtypes = [self._merge_dtype(name) for name in names]
         sealed = []
-        h2d = 0
         for keys, fields in decoded:
             n = len(keys)
             gidx = np.fromiter(
@@ -1352,29 +1358,24 @@ class GlobalAggState:
             if self._merge_demoted:
                 sealed.append((gidx, fields))
                 continue
-            gidx32 = gidx.astype(np.int32)
-            h2d += gidx32.nbytes
-            sealed_fields = {}
-            for name in self.kind.fields:
+            parts_of = []
+            for name, want in zip(names, dtypes):
                 enc, parts = fields[name]
-                want = self._merge_dtype(name)
-                # Copies: the decoded parts are read-only views of the
-                # frame.
                 if enc == "int8":
-                    arrays = tuple(np.array(a) for a in parts)
+                    arrays = tuple(parts)
                 elif enc == "bf16":
-                    arrays = (np.array(parts).view(np.int16),)
+                    arrays = (np.asarray(parts).view(np.int16),)
                 else:  # raw, cast to the table dtype (lossless:
                     # _needs_host_fold demoted anything that is not)
                     arrays = (np.asarray(parts).astype(np.dtype(want)),)
-                sealed_fields[name] = (enc, arrays, want)
-                h2d += sum(a.nbytes for a in arrays)
-            sealed.append((gidx32, n, sealed_fields))
+                parts_of.append((enc, arrays))
+            sealed.append((gidx.astype(np.int32), n, parts_of))
         if self._merge_demoted:
             return {"device": False, "frames": sealed}
-        _flight.note_transfer("h2d", h2d)
-        _flight.RECORDER.count("gsync_merge_h2d_bytes", h2d)
-        return {"device": True, "frames": sealed}
+        rnd = _xla.pack_merge_round(sealed, len(names), pin=self.device.type == "cuda")
+        _flight.note_transfer("h2d", rnd.nbytes)
+        _flight.RECORDER.count("gsync_merge_h2d_bytes", rnd.nbytes)
+        return {"device": True, "round": rnd, "dtypes": dtypes}
 
     def _needs_host_fold(self, decoded: List[Any]) -> bool:
         """Whether an exact part of this round cannot fold on the
@@ -1422,7 +1423,7 @@ class GlobalAggState:
         otherwise).  Every process folds the same frames in the same
         order, so the merged tables stay the same on every process."""
         if sealed["device"]:
-            self._apply_merge_device(sealed["frames"])
+            self._apply_merge_device(sealed["round"], sealed["dtypes"])
         else:
             self._apply_merge_host(sealed["frames"])
 
@@ -1451,35 +1452,36 @@ class GlobalAggState:
                     np.maximum.at(tgt, gidx, vals)
         _flight.RECORDER.count("gsync_merge_host_bytes", host_bytes)
 
-    def _apply_merge_device(self, sealed_frames: List[Any]) -> None:
-        """The device fold: upload each sealed frame's wire-width parts
-        and dequantize, merge and scatter them on the device
-        (:func:`~bytewax_tpu_torch.engine.xla.agg_merge`), one launch
-        for each (frame, field), frames in peer order; the tables stay
-        on the device between closes."""
+    def _apply_merge_device(self, rnd, dtypes: List[str]) -> None:
+        """The device fold: upload the sealed round's packed buffer in
+        one copy and dequantize, merge and scatter every frame's fields
+        on the device in one launch
+        (:func:`~bytewax_tpu_torch.engine.xla.agg_merge_round`), frames
+        in peer order; the tables stay on the device between closes."""
         from bytewax_tpu_torch.engine import xla as _xla
 
+        if not rnd.n_frames:
+            return
         self._bind_device()
         size = self.n_shards * self.cap_per_shard
         if self._dev_fields is None:
             self._dev_fields = {}
         tables = self._dev_fields
         dev = self.device
-        for gidx, n, fields in sealed_frames:
-            g = torch.from_numpy(gidx).to(dev)
-            for name, (init, op) in self.kind.fields.items():
-                enc, parts, want = fields[name]
-                table = tables.get(name)
-                if table is None:
-                    table = _xla.agg_merge_table(size, init, want, dev)
-                elif table.dtype != _xla._TABLE_DTYPES[want]:
-                    # The int32 → float32 promotion at the first round
-                    # that is not all-integer, in round order: the same
-                    # on every process.
-                    table = table.to(torch.float32)
-                tables[name] = _xla.agg_merge(
-                    table, g, n, enc, [torch.from_numpy(p).to(dev) for p in parts], op
-                )
+        ops = []
+        for (name, (init, op)), want in zip(self.kind.fields.items(), dtypes):
+            table = tables.get(name)
+            if table is None:
+                table = _xla.agg_merge_table(size, init, want, dev)
+            elif table.dtype != _xla._TABLE_DTYPES[want]:
+                # The int32 → float32 promotion at the first round that
+                # is not all-integer, in round order: the same on every
+                # process, and before the launch, so a round never
+                # mixes table dtypes.
+                table = table.to(torch.float32)
+            tables[name] = table
+            ops.append(op)
+        _xla.agg_merge_round([tables[name] for name in self.kind.fields], ops, rnd.to(dev))
 
     # -- recovery / emission --------------------------------------------------
 

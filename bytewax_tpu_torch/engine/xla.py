@@ -33,10 +33,14 @@ __all__ = [
     "AccelSpec",
     "DeviceAggState",
     "NonNumericValues",
+    "MergeRound",
     "agg_merge",
     "agg_merge_plain",
+    "agg_merge_round",
+    "agg_merge_round_plain",
     "agg_merge_table",
     "load_fields",
+    "pack_merge_round",
 ]
 
 _MIN_CAPACITY = 1024
@@ -687,10 +691,12 @@ def load_fields(
 # merged aggregate stays on the card between closes and the only
 # per-round host traffic is the wire-width frames themselves.  On a
 # CUDA table the fold is the hand-written kernel ``csrc/agg_merge.cu``
-# (:mod:`bytewax_tpu_torch.ops.merge_kernel`), one launch for each
-# (frame, field); on a CPU table it is the plain version below.  The
-# JAX package compiles one program per (op, encoding, dtype, padded
-# length) (``agg_merge_fn``); here nothing is compiled per shape.
+# (:mod:`bytewax_tpu_torch.ops.merge_kernel`), one launch for a whole
+# round (every frame, every field), from one buffer that the host packs
+# (:func:`pack_merge_round`) and uploads in one copy; on a CPU table it
+# is the plain version below.  The JAX package compiles one program per
+# (op, encoding, dtype, padded length) (``agg_merge_fn``) and runs it a
+# (frame, field); here nothing is compiled per shape.
 
 _TABLE_DTYPES = {"int32": torch.int32, "float32": torch.float32}
 _INT32_LO, _INT32_HI = -(2**31), 2**31 - 1
@@ -787,4 +793,159 @@ def agg_merge(
     if table.device.type == "cpu":
         return agg_merge_plain(table, gidx, n, enc, parts, op)
     msg = f"the merge runs on cuda or cpu tensors, not {table.device}"
+    raise ValueError(msg)
+
+
+#: Encodings of a round's parts, as ``csrc/agg_merge.cu`` numbers them.
+_MERGE_ENCODINGS = ("raw", "int8", "bf16")
+_ITEMSIZE = {torch.int8: 1, torch.int16: 2, torch.int32: 4, torch.float32: 4, torch.int64: 8}
+
+
+def _aligned(n: int) -> int:
+    return (n + 15) & ~15
+
+
+class MergeRound:
+    """One gsync round's frames, packed for the merge: one byte buffer
+    (``buf``, on the host, pinned for an upload, or on a device) that
+    starts with the descriptor block, int64 ``[n_frames][2 + 3 *
+    n_fields]`` (a frame's targets' offset and row count, then each
+    field's encoding and its two parts' offsets; -1 for an absent
+    part), followed by every frame's int32 targets and its fields'
+    parts, each at a 16-byte-aligned offset from the buffer's start.
+    ``desc`` keeps the descriptor block on the host as well."""
+
+    __slots__ = ("_desc_view", "buf", "desc", "n_fields", "n_frames")
+
+    def __init__(self, buf: torch.Tensor, desc: np.ndarray, n_frames: int, n_fields: int):
+        self.buf = buf
+        self.desc = desc
+        self.n_frames = n_frames
+        self.n_fields = n_fields
+        self._desc_view = None
+
+    @property
+    def nbytes(self) -> int:
+        return self.buf.numel()
+
+    @property
+    def max_rows(self) -> int:
+        """The most real rows of a frame of the round."""
+        return int(self.desc[:, 1].max()) if self.n_frames else 0
+
+    def _at(self, offset: int, count: int, dtype) -> torch.Tensor:
+        return self.buf[offset : offset + count * _ITEMSIZE[dtype]].view(dtype)
+
+    def frame(self, f: int) -> Tuple[torch.Tensor, int]:
+        """Frame ``f``'s targets (int32) and real row count."""
+        gidx_at, n = (int(x) for x in self.desc[f, :2])
+        return self._at(gidx_at, n, torch.int32), n
+
+    def field(self, f: int, k: int, dtype=torch.float32) -> Tuple[str, List[torch.Tensor]]:
+        """Frame ``f``'s part of field ``k``: ``(enc, parts)``, views of
+        the buffer, as :func:`agg_merge_plain` takes them (a raw part in
+        ``dtype``, its table's)."""
+        n = int(self.desc[f, 1])
+        code, p0, p1 = (int(x) for x in self.desc[f, 2 + 3 * k : 5 + 3 * k])
+        enc = _MERGE_ENCODINGS[code]
+        if enc == "int8":
+            return enc, [self._at(p0, -(-n // 1024), torch.float32), self._at(p1, n, torch.int8)]
+        if enc == "bf16":
+            return enc, [self._at(p0, n, torch.int16)]
+        return enc, [self._at(p0, n, dtype)]
+
+    def desc_tensor(self) -> torch.Tensor:
+        """The descriptor block, an int64 view of the buffer."""
+        if self._desc_view is None:
+            self._desc_view = self._at(0, self.desc.size, torch.int64)
+        return self._desc_view
+
+    def to(self, device) -> "MergeRound":
+        """The round with its buffer on ``device``: one copy, which does
+        not wait where the buffer is pinned."""
+        if self.buf.device == torch.device(device):
+            return self
+        return MergeRound(self.buf.to(device, non_blocking=True), self.desc, self.n_frames, self.n_fields)
+
+
+def pack_merge_round(frames: Sequence[Any], n_fields: int, pin: bool = False) -> MergeRound:
+    """Pack a round's frames into one buffer (:class:`MergeRound`).
+
+    ``frames`` are ``(gidx int32 [n], n, fields)`` with ``fields`` one
+    ``(enc, arrays)`` a field: ``raw`` one array, already in its table's
+    dtype (int32 or float32); ``int8`` ``(scales float32, q int8)``;
+    ``bf16`` one int16 array of upper halves.  ``pin`` puts the buffer
+    in pinned host memory, for an upload that does not wait."""
+    width = 2 + 3 * n_fields
+    desc = np.full((len(frames), width), -1, dtype=np.int64)
+    at = _aligned(desc.nbytes)
+    pieces = []
+    for f, (gidx, n, fields) in enumerate(frames):
+        if len(fields) != n_fields:
+            msg = f"frame {f} has {len(fields)} fields, the round {n_fields}"
+            raise ValueError(msg)
+        desc[f, :2] = (at, n)
+        pieces.append((at, np.ascontiguousarray(gidx[:n], dtype=np.int32)))
+        at = _aligned(at + 4 * n)
+        for k, (enc, arrays) in enumerate(fields):
+            desc[f, 2 + 3 * k] = _MERGE_ENCODINGS.index(enc)
+            for j, arr in enumerate(arrays):
+                arr = np.ascontiguousarray(arr)
+                desc[f, 3 + 3 * k + j] = at
+                pieces.append((at, arr))
+                at = _aligned(at + arr.nbytes)
+    buf = torch.empty(at, dtype=torch.uint8, pin_memory=pin)
+    host = buf.numpy()
+    host[: desc.nbytes] = desc.view(np.uint8).reshape(-1)
+    for offset, arr in pieces:
+        host[offset : offset + arr.nbytes] = arr.view(np.uint8).reshape(-1)
+    return MergeRound(buf, desc, len(frames), n_fields)
+
+
+def _check_frame_targets(gidx: torch.Tensor, n: int, size: int, f: int) -> None:
+    idx = gidx[:n].long()
+    if n and (int(idx.min()) < 0 or int(idx.max()) >= size):
+        msg = f"agg_merge: frame {f}: a target lies outside the {size}-slot table"
+        raise ValueError(msg)
+    if n and int(torch.bincount(idx, minlength=size).max()) > 1:
+        msg = f"agg_merge: frame {f}: a frame's real targets must be unique table slots"
+        raise ValueError(msg)
+
+
+def agg_merge_round_plain(
+    tables: Sequence[torch.Tensor], ops: Sequence[str], rnd: MergeRound
+) -> Sequence[torch.Tensor]:
+    """The plain PyTorch version of the round merge, in place: every
+    frame of ``rnd`` in order, and within a frame every field ``k``
+    folded into ``tables[k]`` by ``ops[k]`` (:func:`agg_merge_plain`).
+    Raises, naming the frame, at the first frame whose real targets
+    repeat or lie outside the tables."""
+    size = tables[0].shape[0]
+    for f in range(rnd.n_frames):
+        gidx, n = rnd.frame(f)
+        _check_frame_targets(gidx, n, size, f)
+        for k, (table, op) in enumerate(zip(tables, ops)):
+            enc, parts = rnd.field(f, k, table.dtype)
+            agg_merge_plain(table, gidx, n, enc, parts, op)
+    return tables
+
+
+def agg_merge_round(
+    tables: Sequence[torch.Tensor], ops: Sequence[str], rnd: MergeRound
+) -> Sequence[torch.Tensor]:
+    """Fold one round into ``tables`` in place: the kernel on CUDA
+    tables (``rnd`` on their device; one launch, one read-back), the
+    plain version (:func:`agg_merge_round_plain`) on CPU tables."""
+    dev = tables[0].device
+    if dev.type == "cuda":
+        from bytewax_tpu_torch.ops import merge_kernel
+
+        if rnd.n_frames:
+            merge_kernel.merge_round(
+                tables, ops, rnd.desc_tensor(), rnd.n_frames, rnd.buf.data_ptr(), rnd.max_rows
+            )
+        return tables
+    if dev.type == "cpu":
+        return agg_merge_round_plain(tables, ops, rnd)
+    msg = f"the merge runs on cuda or cpu tensors, not {dev}"
     raise ValueError(msg)

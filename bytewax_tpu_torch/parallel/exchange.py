@@ -55,6 +55,7 @@ def bucket_blocks_plain(
     pad0: int = 0,
     pos_base: int = 0,
     pos_pad: int = 0,
+    peers: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the shard-bucketing kernel: the JAX
     package's algorithm (a stable sort by shard, ``bincount``,
@@ -63,10 +64,12 @@ def bucket_blocks_plain(
     ``lanes`` are ``[blocks, rows]`` tensors of one dtype (int32 with
     :data:`DECODE` or :data:`POS`).  Returns ``(out [n_out, n_shards,
     blocks, capacity], counts [blocks, n_shards], dropped [blocks])``
-    with the kernel's layout and semantics (``csrc/shard_bucket.cu``):
-    a row goes to its shard's bucket of its block, in row order; rows
-    that are not valid, or whose shard (``shard_ids``, else lane 0
-    modulo ``n_shards``, truncated as in C) lies outside
+    with the kernel's layout and semantics (``csrc/shard_bucket.cu``);
+    with ``peers`` above 1, ``out`` is peer-major, ``[peers, n_out,
+    n_shards // peers, blocks, capacity]``, each peer's destinations one
+    contiguous slice.  A row goes to its shard's bucket of its block, in
+    row order; rows that are not valid, or whose shard (``shard_ids``,
+    else lane 0 modulo ``n_shards``, truncated as in C) lies outside
     ``[0, n_shards)``, go nowhere; rows past the capacity count in
     ``dropped``; empty positions hold 0, ``pad0`` in lane 0 with
     :data:`DECODE` and ``pos_pad`` in the position lane."""
@@ -93,24 +96,34 @@ def bucket_blocks_plain(
     counts = raw_counts.clamp(max=capacity)
     dropped = (raw_counts - counts).sum(dim=1)
     keep = ok.reshape(-1) & (rank < capacity)
-    per_lane = n_shards * n_blocks * capacity
-    src = block.expand(n_blocks, n).reshape(-1)
-    dest = torch.where(
-        keep, (flat - src * bins) * n_blocks * capacity + src * capacity + rank, per_lane
-    )
     n_out = len(lanes) + (1 if flags & POS else 0)
-    out = torch.zeros((n_out, per_lane + 1), dtype=lanes[0].dtype, device=dev)
+    # Position of (lane 0, shard, block, rank) in the flat output, whose
+    # layout is [peer][lane][shard of the peer][block][rank]; lane k is
+    # k * lane_stride further on.  Rows that are not kept go to a spare
+    # last position.
+    local = n_shards // peers
+    lane_stride = local * n_blocks * capacity
+    total = n_out * n_shards * n_blocks * capacity
+    src = block.expand(n_blocks, n).reshape(-1)
+    shard = flat - src * bins
+    peer = torch.div(shard, local, rounding_mode="floor")
+    at = ((peer * n_out * local + (shard - peer * local)) * n_blocks + src) * capacity + rank
+    out = torch.zeros(total + 1, dtype=lanes[0].dtype, device=dev)
+    view = out[:total].view(peers, n_out, local, n_blocks, capacity)
+    if flags & DECODE:
+        view[:, 0] = pad0
+    if flags & POS:
+        view[:, -1] = pos_pad
     for k, lane in enumerate(lanes):
         v = lane.reshape(-1)
         if k == 0 and flags & DECODE:
             v = torch.div(v, n_shards, rounding_mode="trunc")
-            out[0].fill_(pad0)
-        out[k][dest] = v.to(out.dtype)
+        out[torch.where(keep, at + k * lane_stride, total)] = v.to(out.dtype)
     if flags & POS:
-        out[-1].fill_(pos_pad)
-        out[-1][dest] = (pos_base + torch.arange(n_blocks * n, device=dev)).to(out.dtype)
-    out = out[:, :per_lane].reshape(n_out, n_shards, n_blocks, capacity)
-    return out, counts.to(torch.int32), dropped.to(torch.int32)
+        dest = torch.where(keep, at + (n_out - 1) * lane_stride, total)
+        out[dest] = (pos_base + torch.arange(n_blocks * n, device=dev)).to(out.dtype)
+    shape = bucket_kernel.out_shape(n_out, n_shards, n_blocks, capacity, peers)
+    return out[:total].view(shape), counts.to(torch.int32), dropped.to(torch.int32)
 
 
 def bucket_blocks(
@@ -123,13 +136,20 @@ def bucket_blocks(
     pad0: int = 0,
     pos_base: int = 0,
     pos_pad: int = 0,
+    peers: int = 1,
 ):
     """Bucket ``[blocks, rows]`` lanes by shard: the Hopper kernel on a
     CUDA tensor (int32 lanes), the plain version on a CPU tensor; see
     :func:`bucket_blocks_plain` for the layout and semantics."""
     dev = lanes[0].device
     kwargs = dict(
-        shard_ids=shard_ids, valid=valid, flags=flags, pad0=pad0, pos_base=pos_base, pos_pad=pos_pad
+        shard_ids=shard_ids,
+        valid=valid,
+        flags=flags,
+        pad0=pad0,
+        pos_base=pos_base,
+        pos_pad=pos_pad,
+        peers=peers,
     )
     if dev.type == "cuda":
         return bucket_kernel.bucket(list(lanes), n_shards, capacity, **kwargs)
@@ -347,9 +367,9 @@ def exchange_procs(
     ``valid[s]`` its mask, as for :func:`exchange_rows`; a row's owner
     is lane 0 modulo the global shard count.  Each run of blocks on
     one device is bucketed by one kernel call over all ``P * L``
-    shards, the buckets are laid out so that each peer's destinations
-    form one contiguous slice, and one :func:`all_to_all_procs` ships
-    them.  Returns, for each local shard ``d``, ``[n_out, P * L,
+    shards, which lays the buckets out peer-major (each peer's
+    destinations one contiguous slice), and one :func:`all_to_all_procs`
+    ships that buffer as it is.  Returns, for each local shard ``d``, ``[n_out, P * L,
     capacity]`` on ``mesh.devices[d]``: every global source block's
     bucket ``d``, in process order.  Every process must call this with
     the same ``capacity`` and block length: the splits are equal."""
@@ -361,14 +381,13 @@ def exchange_procs(
         rows = [_run_rows([lane[s] for s in run]) for lane in lanes]
         ok = _run_rows([valid[s] for s in run])
         out, _counts, _dropped = bucket_blocks(
-            rows, n_shards, capacity, valid=ok, flags=flags, pad0=pad0
+            rows, n_shards, capacity, valid=ok, flags=flags, pad0=pad0, peers=procs
         )
         outs.append(out)
     home = mesh.devices[0]
-    out = outs[0] if len(outs) == 1 else torch.cat([o.to(home) for o in outs], dim=2)
-    n_out = out.shape[0]
-    # [lane, dst, src, cap] -> [peer, lane, dst of the peer, src, cap]
-    send = out.view(n_out, procs, n_local, n_local, capacity).transpose(0, 1).contiguous()
+    # [peer, lane, dst of the peer, src, cap], the runs' sources joined.
+    send = outs[0] if len(outs) == 1 else torch.cat([o.to(home) for o in outs], dim=3)
+    n_out = send.shape[1]
     recv = all_to_all_procs(world, send)
     got = []
     for d, dev in enumerate(mesh.devices):

@@ -3387,8 +3387,14 @@ SHARD_KERNEL_ROWS = 1 << 20
 SHARD_DISTS = ("uniform_10000", "uniform_2^20", "hot_half")
 SHARD_BRC_BATCHES = 8
 SHARD_WINDOW_BATCHES = 8
-#: The shard-bucketing kernel's passes, as the profiler lists them.
-BUCKET_KERNELS = ("k_count", "k_offsets", "k_pad", "k_place")
+#: The shard-bucketing kernel's one launch (a template: one name for
+#: its instances), as the profiler lists it.
+BUCKET_KERNELS = ("bucket_onepass",)
+#: Edge cases of the exact check: (shards, source blocks, rows a
+#: block): one shard, 64 shards, no rows, one row, rows that are no
+#: multiple of the 4,096-row chunk, and 2^24 rows in one block (4,096
+#: chunks, more than the card's blocks hold at once).
+SHARD_EDGES = ((1, 1, 1 << 20), (64, 4, 1 << 18), (4, 2, 0), (4, 2, 1), (8, 3, 100_003), (4, 1, 1 << 24))
 
 
 def _bucket_inputs(dist: str, n: int, n_shards: int, seed: int, padded: bool = True):
@@ -3416,6 +3422,94 @@ def _bucket_inputs(dist: str, n: int, n_shards: int, seed: int, padded: bool = T
     return lanes, torch.from_numpy(valid).to(DEV).view(n_shards, r)
 
 
+def _bucket_edge_inputs(n_blocks: int, rows: int, seed: int):
+    """Wire key ids over 10,000 and raw 32-bit values in ``n_blocks``
+    source blocks of ``rows`` rows on the card, a tenth of them
+    padding."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    keys = rng.randint(0, 10_000, size=(n_blocks, rows)).astype(np.int32)
+    vals = rng.randint(-(2**31), 2**31, size=(n_blocks, rows), dtype=np.int64).astype(np.int32)
+    valid = rng.rand(n_blocks, rows) < 0.9
+    return [torch.from_numpy(keys).to(DEV), torch.from_numpy(vals).to(DEV)], torch.from_numpy(valid).to(DEV)
+
+
+def _bucket_same(got, want, what: str) -> int:
+    """Exact agreement of a bucket call with its plain version; returns
+    the worst difference (0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    worst = 0
+    for g, w, part in zip(got, want, ("buckets", "counts", "dropped")):
+        if g.shape != w.shape:
+            msg = f"shard_bucket {what}: {part} {tuple(g.shape)} != {tuple(w.shape)}"
+            raise AssertionError(msg)
+        worst = max(worst, int((g.long() - w.long()).abs().max()) if g.numel() else 0)
+    if worst != 0:
+        msg = f"shard_bucket {what}: differs by {worst}"
+        raise AssertionError(msg)
+    return worst
+
+
+def _bucket_edges(exchange) -> dict:
+    """The edge cases, then back-to-back calls of different shapes with
+    no sync between them and one call replayed in a CUDA graph (the
+    status words need no reset between calls), then the cluster-wide
+    exchange's peer-major layout; every result exactly the plain
+    version's."""
+    import torch
+
+    cases = 0
+    for i, (n_shards, n_blocks, rows) in enumerate(SHARD_EDGES):
+        lanes, valid = _bucket_edge_inputs(n_blocks, rows, seed=60 + i)
+        _o, raw, _d = exchange.bucket_blocks_plain(lanes[:1], n_shards, max(1, rows), valid=valid)
+        top = max(1, int(raw.max()))
+        for capacity in (top, max(1, top // 2)):
+            for flags in (exchange.DECODE, exchange.DECODE | exchange.POS):
+                kw = dict(valid=valid, flags=flags, pad0=(1 << 20) - 1, pos_base=5, pos_pad=-1)
+                got = exchange.bucket_blocks(lanes, n_shards, capacity, **kw)
+                want = exchange.bucket_blocks_plain(lanes, n_shards, capacity, **kw)
+                _bucket_same(got, want, f"{n_shards} shards, {n_blocks}x{rows} rows, cap {capacity}")
+                cases += 1
+    issued = []
+    for i, (n_shards, n_blocks, rows) in enumerate(((4, 4, 1 << 18), (64, 2, 5000), (4, 4, 1 << 18), (2, 1, 3))):
+        lanes, valid = _bucket_edge_inputs(n_blocks, rows, seed=70 + i)
+        kw = dict(valid=valid, flags=exchange.DECODE | exchange.POS, pad0=7, pos_pad=-1)
+        cap = max(1, rows // n_shards)
+        issued.append((lanes, n_shards, cap, kw, exchange.bucket_blocks(lanes, n_shards, cap, **kw)))
+    for lanes, n_shards, cap, kw, got in issued:
+        _bucket_same(got, exchange.bucket_blocks_plain(lanes, n_shards, cap, **kw), "back to back")
+    lanes, valid = _bucket_edge_inputs(4, 1 << 18, seed=80)
+    kw = dict(valid=valid, flags=exchange.DECODE, pad0=9)
+    want = exchange.bucket_blocks_plain(lanes, 4, 1 << 17, **kw)
+    exchange.bucket_blocks(lanes, 4, 1 << 17, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = exchange.bucket_blocks(lanes, 4, 1 << 17, **kw)
+    for _ in range(3):
+        for g in got:
+            g.fill_(-123)
+        graph.replay()
+        _bucket_same(got, want, "graph replay")
+    for procs, local in ((2, 1), (2, 4), (8, 8)):
+        lanes, valid = _bucket_edge_inputs(local, 50_000, seed=90 + procs)
+        kw = dict(valid=valid, flags=exchange.DECODE | exchange.POS, pad0=-1, pos_pad=-2)
+        cap = 50_000 // (procs * local) + 200
+        got = exchange.bucket_blocks(lanes, procs * local, cap, peers=procs, **kw)
+        _bucket_same(got, exchange.bucket_blocks_plain(lanes, procs * local, cap, peers=procs, **kw), "peer-major")
+        flat = exchange.bucket_blocks(lanes, procs * local, cap, **kw)[0]
+        old = flat.view(flat.shape[0], procs, local, local, cap).transpose(0, 1).contiguous()
+        if not torch.equal(got[0], old):
+            msg = f"shard_bucket peer-major {procs}x{local}: not the old transpose"
+            raise AssertionError(msg)
+    return {"edge_cases": cases, "back_to_back_calls": len(issued), "graph_replays": 3,
+            "peer_major_cases": 3}
+
+
 def _bucket_bound_ms(lanes, valid, n_out: int, n_shards: int, capacity: int) -> float:
     """Bytes over the card's memory rate: every lane and the mask read
     once, every output position, count and drop written once."""
@@ -3431,7 +3525,9 @@ def phase_shard_kernel(card: dict, n: int) -> dict:
     and shards, keys uniform over 10,000 and 2^20 and one hot key on
     half the rows, a capacity at the true bucket maximum and at half of
     it (rows dropped), the fold's lanes and the scan's (with the
-    position lane); then time it at the sharded flows' shapes."""
+    position lane); then the edge cases, back-to-back calls, a CUDA
+    graph's replays and the peer-major layout (:func:`_bucket_edges`);
+    then time it at the sharded flows' shapes."""
     import math
 
     import numpy as np
@@ -3451,21 +3547,14 @@ def phase_shard_kernel(card: dict, n: int) -> dict:
                     kw = dict(valid=valid, flags=flags, pad0=(1 << 20) - 1, pos_pad=n)
                     got = exchange.bucket_blocks(lanes, n_shards, capacity, **kw)
                     want = exchange.bucket_blocks_plain(lanes, n_shards, capacity, **kw)
-                    torch.cuda.synchronize()
-                    for g, w, what in zip(got, want, ("buckets", "counts", "dropped")):
-                        if g.shape != w.shape:
-                            msg = f"shard_bucket {dist}/{n_shards}: {what} {tuple(g.shape)} != {tuple(w.shape)}"
-                            raise AssertionError(msg)
-                        worst = max(worst, int((g.long() - w.long()).abs().max()) if g.numel() else 0)
-                    if worst != 0:
-                        msg = f"shard_bucket {dist}/{n_shards}/cap {capacity}: differs by {worst}"
-                        raise AssertionError(msg)
+                    worst = max(worst, _bucket_same(got, want, f"{dist}/{n_shards}/cap {capacity}"))
                     if (int(got[2].sum()) > 0) != (capacity < top):
                         msg = f"shard_bucket {dist}/{n_shards}: dropped {got[2].tolist()} at cap {capacity}"
                         raise AssertionError(msg)
                     cases += 1
+    edges = _bucket_edges(exchange)
     _emit(card, "shard_kernel", rows=n, cases=cases, shards=list(SHARD_COUNTS),
-          dists=list(SHARD_DISTS), max_abs_err=worst)
+          dists=list(SHARD_DISTS), edges=[list(e) for e in SHARD_EDGES], max_abs_err=worst, **edges)
 
     times = {}
     for label, n_keys, flags in (
@@ -3486,10 +3575,17 @@ def phase_shard_kernel(card: dict, n: int) -> dict:
             exchange.bucket_blocks_plain(lanes, SHARDS, capacity, **kw)
 
         prof = _profiled(call, 200, names=BUCKET_KERNELS)
-        ms = None if prof["ms"] is None else prof["ms"] * prof["launches_per_call"]
+        # Passes a call from the host side (exact; the device trace can
+        # drop a few launches): a call launches nothing but the kernel.
+        passes = prof["host_launches_per_call"]
+        if passes > 2:
+            msg = f"shard_bucket {label}: {passes} passes a call (at most 2)"
+            raise AssertionError(msg)
+        ms = None if prof["ms"] is None else prof["ms"] * passes
         n_out = 3 if flags & exchange.POS else 2
         t = {
             "ms": ms,
+            "passes_per_call": passes,
             "graph_ms": _graph_ms(call),
             "host_us": _host_us(call, 200),
             "plain_ms": _time_ms(plain, 20),
@@ -3499,8 +3595,7 @@ def phase_shard_kernel(card: dict, n: int) -> dict:
         }
         times[label] = t
         _emit(card, "shard_kernel_time", shape=label, rows=n, shards=SHARDS, keys=n_keys,
-              capacity=capacity, lanes_out=n_out, passes_per_call=prof["launches_per_call"],
-              host_launches_per_call=prof["host_launches_per_call"], **t)
+              capacity=capacity, lanes_out=n_out, host_launches_per_call=prof["host_launches_per_call"], **t)
     return {"max_abs_err": worst, "times": times}
 
 
@@ -3761,7 +3856,26 @@ MERGE_OPS = ("add", "min", "max")
 MERGE_ENCS = ("raw", "int8", "bf16")
 MERGE_DTYPES = ("int32", "float32")
 #: The merge kernel's name, as the profiler lists it.
-MERGE_KERNEL = ("merge_rows",)
+MERGE_KERNEL = ("merge_round",)
+#: Fields of the bit-exact round cases: (op, encoding, table dtype) a
+#: field; a stats round as the tier ships it quantized and exact, and a
+#: mix of every encoding.
+MERGE_ROUND_FIELDS = {
+    "stats_int8": (("min", "int8", "float32"), ("max", "int8", "float32"),
+                   ("add", "int8", "float32"), ("add", "raw", "int32")),
+    "stats_bf16": (("min", "bf16", "float32"), ("max", "bf16", "float32"),
+                   ("add", "bf16", "float32"), ("add", "raw", "int32")),
+    "exact_int32": (("min", "raw", "int32"), ("max", "raw", "int32"),
+                    ("add", "raw", "int32"), ("add", "raw", "int32")),
+    "mixed": (("add", "raw", "float32"), ("min", "int8", "int32"), ("max", "bf16", "int32")),
+}
+#: Frames of a bit-exact round, in peer order: (padded length, real
+#: rows), cycled.
+MERGE_ROUND_FRAMES = ((8192, 8190), (16384, 16380), (8192, 1), (8192, 5000))
+#: Timed rounds: a stats round of the tier at 2 and 4 processes with
+#: one shard each (a frame a process, every key: 4,095 a shard).
+MERGE_ROUND_TIMED = (("stats_int8_2p", 2, "int8"), ("stats_bf16_2p", 2, "bf16"),
+                     ("stats_int8_4p", 4, "int8"), ("stats_bf16_4p", 4, "bf16"))
 #: Timed merge shapes: a quantized float frame's sum field, its count
 #: field, and a bf16 min field, at 2 and 4 shards.
 MERGE_TIMED = (
@@ -3861,13 +3975,211 @@ def _merge_bound_ms(n: int, enc: str) -> float:
     return (n * (4 + part + 8) + scales) / HBM_BYTES_PER_S * 1e3
 
 
+def _merge_round_case(fields, n_frames: int, seed: int):
+    """A round of ``n_frames`` frames (:data:`MERGE_ROUND_FRAMES`) over
+    ``fields`` into tables of 20,480 slots: the tables (a third of their
+    slots folded already) and, per frame, its targets, real rows and
+    each field's ``(enc, parts)``.  Frames share slots, so a slot takes
+    several frames' rows, in order."""
+    tables, frames = [], []
+    for f in range(n_frames):
+        padded, n = MERGE_ROUND_FRAMES[f % len(MERGE_ROUND_FRAMES)]
+        gidx, parts_of = None, []
+        for k, (op, enc, dtype) in enumerate(fields):
+            table, g, parts = _merge_case(op, enc, dtype, 16384, n, seed + 31 * f + k)
+            if f == 0:
+                tables.append(table)
+            gidx = g[:padded] if gidx is None else gidx
+            if enc == "int8":  # (scales, q): a scale a 1,024 rows
+                parts = (parts[0][: -(-padded // 1024)], parts[1][:padded])
+            else:
+                parts = (parts[0][:padded],)
+            parts_of.append((enc, parts))
+        frames.append((gidx, n, parts_of))
+    return tables, frames
+
+
+def _stats_round(procs: int, quant: str, seed: int):
+    """The tier's stats round at ``procs`` processes of one shard each:
+    one frame a process over every key (4,095 a shard) into tables of
+    ``procs * 4096`` slots (min, max and sum quantized, count exact);
+    returns the tables on the card, the ops and the frames."""
+    import numpy as np
+    import torch
+
+    from bytewax_tpu_torch.engine import xla as txla
+
+    rng = np.random.default_rng(seed)
+    size = procs * 4096
+    real = np.setdiff1d(np.arange(size), np.arange(4095, size, 4096))
+    n = len(real)
+    spec = (("min", float("inf"), "float32"), ("max", float("-inf"), "float32"),
+            ("add", 0.0, "float32"), ("add", 0.0, "int32"))
+    tables = [txla.agg_merge_table(size, init, dtype, DEV) for _op, init, dtype in spec]
+    frames = []
+    for _ in range(procs):
+        vals = rng.normal(20, 15, (3, n)).astype(np.float32)
+        parts_of = []
+        for v in vals:
+            if quant == "int8":
+                blocks = -(-n // 1024)
+                padded = np.zeros(blocks * 1024, dtype=np.float32)
+                padded[:n] = v
+                scales = np.abs(padded.reshape(blocks, 1024)).max(axis=1).astype(np.float32) / 127
+                q = np.rint(padded / np.repeat(np.maximum(scales, 1e-30), 1024)).astype(np.int8)[:n]
+                parts_of.append(("int8", (scales, q)))
+            else:
+                parts_of.append(("bf16", ((v.view(np.uint32) >> 16).astype(np.uint16).view(np.int16),)))
+        parts_of.append(("raw", (rng.integers(1, 500, n).astype(np.int32),)))
+        frames.append((rng.permutation(real).astype(np.int32), n, parts_of))
+    return tables, [op for op, _i, _d in spec], frames
+
+
+def _merge_round_library(tables, ops, rnd) -> None:
+    """The PyTorch sequence that computes a round, as a yardstick the
+    port never calls: a frame and a field at a time, the dequantize and
+    one ``scatter_reduce_``."""
+    for f in range(rnd.n_frames):
+        gidx, n = rnd.frame(f)
+        for k, (table, op) in enumerate(zip(tables, ops)):
+            enc, parts = rnd.field(f, k, table.dtype)
+            _merge_library(table, gidx, n, enc, parts, op)
+
+
+def _merge_round_bound_ms(rnd, tables) -> float:
+    """Bytes over the card's memory rate: each frame's targets and
+    parts read once, and each row's slot of each table read and written
+    once."""
+    total = 0
+    for f in range(rnd.n_frames):
+        _g, n = rnd.frame(f)
+        total += 4 * n
+        for k, table in enumerate(tables):
+            _enc, parts = rnd.field(f, k, table.dtype)
+            total += sum(p.numel() * p.element_size() for p in parts) + 8 * n
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def _merge_round_cases() -> dict:
+    """The round kernel against the plain version folded frame by frame,
+    on the card, bit for bit, each round run twice: every field set of
+    :data:`MERGE_ROUND_FIELDS` over rounds of 1, 2 and 4 frames; then a
+    repeated target and a target outside the tables, each of which must
+    raise naming its frame."""
+    import torch
+
+    from bytewax_tpu_torch.engine import xla as txla
+    from bytewax_tpu_torch.ops import merge_kernel
+
+    cases = 0
+    for i, (name, spec) in enumerate(sorted(MERGE_ROUND_FIELDS.items())):
+        ops = [op for op, _enc, _dt in spec]
+        for n_frames in (1, 2, 4):
+            tables, frames = _merge_round_case(spec, n_frames, seed=200 + 10 * i + n_frames)
+            rnd = txla.pack_merge_round(frames, len(spec), pin=True).to(DEV)
+            want = [torch.from_numpy(t.copy()).to(DEV) for t in tables]
+            txla.agg_merge_round_plain(want, ops, rnd)
+            want = [t.view(torch.int32).cpu() for t in want]
+            for run in range(2):
+                got = [torch.from_numpy(t.copy()).to(DEV) for t in tables]
+                before = merge_kernel.launches
+                txla.agg_merge_round(got, ops, rnd)
+                if merge_kernel.launches != before + 1:
+                    msg = f"agg_merge round {name}/{n_frames}: {merge_kernel.launches - before} launches"
+                    raise AssertionError(msg)
+                for k, (g, w) in enumerate(zip(got, want)):
+                    if not torch.equal(g.view(torch.int32).cpu(), w):
+                        msg = f"agg_merge round {name}/{n_frames}, field {k}, run {run}: bits differ"
+                        raise AssertionError(msg)
+            cases += 1
+    spec = MERGE_ROUND_FIELDS["stats_int8"]
+    ops = [op for op, _enc, _dt in spec]
+    tables, frames = _merge_round_case(spec, 3, seed=300)
+    gidx, n, parts = frames[1]
+    bad = gidx.copy()
+    bad[7] = bad[3]
+    outside = frames[2][0].copy()
+    outside[0] = tables[0].shape[0]
+    for fault, at in (((frames[0], (bad, n, parts), frames[2]), 1),
+                      ((frames[0], frames[1], (outside,) + frames[2][1:]), 2)):
+        rnd = txla.pack_merge_round(list(fault), len(spec), pin=True).to(DEV)
+        try:
+            txla.agg_merge_round([torch.from_numpy(t.copy()).to(DEV) for t in tables], ops, rnd)
+        except ValueError as exc:
+            if f"frame {at} " not in str(exc):
+                msg = f"agg_merge round: the error does not name frame {at}: {exc}"
+                raise AssertionError(msg) from exc
+        else:
+            msg = f"agg_merge round: frame {at}'s fault did not raise"
+            raise AssertionError(msg)
+    return {"round_cases": cases, "round_fields": sorted(MERGE_ROUND_FIELDS), "round_frames": [1, 2, 4],
+            "faults_named": [1, 2]}
+
+
+def _time_merge_rounds(card: dict) -> dict:
+    """``merge_round_time`` lines at the tier's stats round shapes."""
+    import torch
+
+    from bytewax_tpu_torch.engine import xla as txla
+    from bytewax_tpu_torch.ops import merge_kernel
+
+    times = {}
+    for label, procs, quant in MERGE_ROUND_TIMED:
+        tables, ops, frames = _stats_round(procs, quant, seed=procs)
+        host_rnd = txla.pack_merge_round(frames, len(tables), pin=True)
+        rnd = host_rnd.to(DEV)
+        lib_tables = [t.clone() for t in tables]
+        plain_tables = [t.clone() for t in tables]
+
+        def apply(tables=tables, ops=ops, host_rnd=host_rnd):
+            txla.agg_merge_round(tables, ops, host_rnd.to(DEV))
+
+        def launch(tables=tables, ops=ops, rnd=rnd):
+            merge_kernel.launch_round(tables, ops, rnd.desc_tensor(), rnd.n_frames, rnd.buf.data_ptr(),
+                                      rnd.max_rows)
+
+        def pack(frames=frames, n_fields=len(tables)):
+            txla.pack_merge_round(frames, n_fields, pin=True)
+
+        def plain(tables=plain_tables, ops=ops, rnd=rnd):
+            txla.agg_merge_round_plain(tables, ops, rnd)
+
+        def library(tables=lib_tables, ops=ops, rnd=rnd):
+            _merge_round_library(tables, ops, rnd)
+
+        prof = _profiled(launch, 200, names=MERGE_KERNEL)
+        whole = _profiled(apply, 50, names=MERGE_KERNEL)
+        host = _host_us_alternating({"apply": apply, "launch": launch, "pack": pack}, 100)
+        tm = {
+            "ms": prof["ms"],
+            "graph_ms": _graph_ms(launch),
+            "host_us": host["apply"],
+            "launch_host_us": host["launch"],
+            "pack_us": host["pack"],
+            "plain_ms": _time_ms(plain, 20),
+            "bound_ms": _merge_round_bound_ms(rnd, tables),
+            "bound_by": "bytes",
+            "library_ms": _time_ms(library, 20),
+        }
+        times[label] = tm
+        _emit(card, "merge_round_time", shape=label, processes=procs, frames=rnd.n_frames,
+              fields=len(tables), rows_a_frame=frames[0][1], table_slots=tables[0].shape[0], encoding=quant,
+              round_bytes=host_rnd.nbytes, launches_per_round=whole["host_launches_per_call"],
+              device_trace_launches_per_round=whole["launches_per_call"],
+              host_memsets_per_round=whole["host_memsets_per_call"],
+              library="per frame and field: the dequantize, then one scatter_reduce_", **tm)
+    return times
+
+
 def phase_merge_kernel(card: dict) -> dict:
     """Phase 12 (a): hold the dequantize-and-merge kernel against its
-    plain version on the card bit for bit (every op, encoding and table
-    dtype; frames of 8,192 and 16,384 rows with n below the padded
-    length and a frame of one row; NaN, ±inf and negative values), each
-    case run twice (the two runs bit-identical too); then time it at
-    the tier's shapes."""
+    plain version on the card bit for bit: single frame-and-field calls
+    (every op, encoding and table dtype; frames of 8,192 and 16,384 rows
+    with n below the padded length and a frame of one row; NaN, ±inf
+    and negative values), each run twice (the two runs bit-identical
+    too), then whole rounds (:func:`_merge_round_cases`); then time it:
+    a frame's field alone (``merge_kernel_time``) and whole stats rounds
+    (``merge_round_time``)."""
     import torch
 
     from bytewax_tpu_torch.engine import xla as txla
@@ -3892,9 +4204,10 @@ def phase_merge_kernel(card: dict) -> dict:
                     msg = f"agg_merge {op}/{enc}/{dtype}/{padded}/{n}, run {k}: {bad} slots differ in their bits"
                     raise AssertionError(msg)
             cases += 1
+    rounds = _merge_round_cases()
     _emit(card, "merge_kernel", cases=cases, runs_per_case=2, frames=[list(f) for f in MERGE_FRAMES],
           ops=list(MERGE_OPS), encodings=list(MERGE_ENCS), table_dtypes=list(MERGE_DTYPES),
-          bit_exact=True, max_abs_err=0.0)
+          bit_exact=True, max_abs_err=0.0, **rounds)
 
     times = {}
     for padded, n in MERGE_FRAMES[:2]:
@@ -3903,12 +4216,13 @@ def phase_merge_kernel(card: dict) -> dict:
             table, gidx, parts = _merge_case(op, enc, dtype, padded, n, seed=7)
             t, g, p = _on_card(table, gidx, parts)
             lib_t = t.clone()
+            one = txla.pack_merge_round([(gidx, n, [(enc, parts)])], 1, pin=True).to(DEV)
 
             def call(t=t, g=g, n=n, enc=enc, p=p, op=op):
                 merge_kernel.merge(t, g, n, enc, p, op)
 
-            def launch(t=t, g=g, n=n, enc=enc, p=p, op=op):
-                merge_kernel.launch(t, g, n, enc, p, op)
+            def launch(t=t, op=op, one=one):
+                merge_kernel.launch_round([t], [op], one.desc_tensor(), 1, one.buf.data_ptr(), n)
 
             def plain(t=t, g=g, n=n, enc=enc, p=p, op=op):
                 txla.agg_merge_plain(t, g, n, enc, p, op)
@@ -3935,7 +4249,7 @@ def phase_merge_kernel(card: dict) -> dict:
                   host_launches_per_call=prof["host_launches_per_call"],
                   host_memsets_per_call=prof["host_memsets_per_call"],
                   library="the dequantize, then one scatter_reduce_", **tm)
-    return {"times": times}
+    return {"times": times, "round_times": _time_merge_rounds(card)}
 
 
 def _global_data(work: Path, n_stations: int, seed: int):
@@ -4094,6 +4408,10 @@ def _global_run(card: dict, work: Path, data: Path, name: str, procs: int, stati
     rows = GLOBAL_BATCHES * BATCH_ROWS
     after = max(r["end_s"] for r in reps) - max(r["first_batch_s"] for r in reps)
     launches = {key: [r[f"{key}_launches"] for r in reps] for key in ("bucket", "fold", "merge")}
+    rounds = [_rounds(err, r["proc_id"]) for r in reps]
+    if distributed and quant != "off" and not host_fold and launches["merge"] != rounds:
+        msg = f"{name}: merge launches {launches['merge']} against exchange rounds {rounds}: one a round expected"
+        raise AssertionError(msg)
     transports = sorted({r["transport"] for r in reps if r["transport"]})
     _emit(
         card,
@@ -4112,7 +4430,7 @@ def _global_run(card: dict, work: Path, data: Path, name: str, procs: int, stati
         # From the last process's first batch to the last one's end, each
         # counted from its own process's start (they start together).
         rows_per_s_after_startup=rows / after,
-        exchange_rounds=[_rounds(err, r["proc_id"]) for r in reps],
+        exchange_rounds=rounds,
         gsync_s=[r["phase_seconds"].get("gsync", 0.0) for r in reps],
         collective_lane_s=[r["phase_seconds"].get("collective_lane", 0.0) for r in reps],
         device_s=[r["phase_seconds"].get("device", 0.0) for r in reps],
@@ -4123,6 +4441,7 @@ def _global_run(card: dict, work: Path, data: Path, name: str, procs: int, stati
         bucket_launches=launches["bucket"],
         fold_launches=launches["fold"],
         merge_launches=launches["merge"],
+        merge_launches_per_round=[m / r if r else None for m, r in zip(launches["merge"], rounds)],
         max_mean_err=worst["mean"],
         max_min_max_err=worst["min_max"],
         cpu_count=os.cpu_count(),
@@ -4341,7 +4660,7 @@ def main() -> int:
     times = shapes["brc_413"]
     scan_times = scan["times"]["welford"]
     bucket_times = sharded["times"]["brc_10000"]
-    merge_times = glob["times"]["sum_int8_f32_2sh"]
+    merge_times = glob["round_times"]["stats_int8_2p"]
     keys = ("ms", "host_us", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card["line"])
     print(
@@ -4402,6 +4721,7 @@ def main() -> int:
                         "launches_by_path": bucket_launches,
                         "max_abs_err": sharded["max_abs_err"],
                         "ms": bucket_times["ms"],
+                        "passes_per_call": bucket_times["passes_per_call"],
                         "graph_ms": bucket_times["graph_ms"],
                         "host_us": bucket_times["host_us"],
                         "plain_ms": bucket_times["plain_ms"],
@@ -4428,15 +4748,17 @@ def main() -> int:
                         "graph_ms": merge_times["graph_ms"],
                         "host_us": merge_times["host_us"],
                         "launch_host_us": merge_times["launch_host_us"],
+                        "pack_us": merge_times["pack_us"],
                         "plain_ms": merge_times["plain_ms"],
                         "bound_ms": merge_times["bound_ms"],
                         "bound_by": merge_times["bound_by"],
                         "library_ms": merge_times["library_ms"],
-                        "library": "the dequantize, then one scatter_reduce_",
-                        "shape": "sum field of an int8 frame, 8,190 rows, 2 shards, float32 table",
+                        "library": "per frame and field: the dequantize, then one scatter_reduce_",
+                        "shape": "one int8 stats round of 2 processes: 2 frames x 4 fields, "
+                        "8,190 rows a frame, one launch",
                         "shapes": {
                             name: {key: t[key] for key in keys + ("graph_ms", "launch_host_us")}
-                            for name, t in glob["times"].items()
+                            for name, t in {**glob["round_times"], **glob["times"]}.items()
                         },
                     },
                 ]

@@ -25,7 +25,7 @@ from bytewax_tpu.ops.segment import AGG_KINDS as JAX_AGG_KINDS
 from bytewax_tpu_torch.engine import sharded_state as tss
 from bytewax_tpu_torch.engine import xla as txla
 from bytewax_tpu_torch.ops.segment import AGG_KINDS
-from test_torch_kernel_cuda import _merge_case
+from test_torch_kernel_cuda import ROUND_FIELDS, _merge_case, _round_case
 
 CAP = 4096
 OPS = ("add", "min", "max")
@@ -185,3 +185,138 @@ def test_sealing_refuses_a_frame_that_names_a_key_twice():
     frames = jwire.encode_agg({"key": np.array(["a", "b", "a"]), "sum": np.array([1.0, 2.0, 3.0])}, "int8")
     with pytest.raises(AssertionError, match="twice"):
         tst._seal_merge([frames])
+
+
+# -- a whole round: every frame, every field ----------------------------------
+
+
+def _jax_round(tables, spec, frames):
+    """The JAX package's fold of a round: ``agg_merge_fn`` a (frame,
+    field), on each frame's padded arrays."""
+    out = [jnp.asarray(t) for t in tables]
+    for gidx, n, parts_of in frames:
+        for k, ((op, enc, dtype), (_enc, parts)) in enumerate(zip(spec, parts_of)):
+            if str(out[k].dtype) != dtype:
+                out[k] = out[k].astype(jnp.dtype(dtype))
+            fn = jxla.agg_merge_fn(op, enc, dtype, len(gidx))
+            out[k] = fn(out[k], jnp.asarray(gidx), n, *_jax_parts(enc, parts))
+    return [np.asarray(t) for t in out]
+
+
+def _frame_by_frame(tables, spec, frames):
+    """``agg_merge_plain`` a frame and a field at a time, on the frames'
+    own arrays."""
+    out = [torch.from_numpy(t.copy()) for t in tables]
+    for gidx, n, parts_of in frames:
+        for k, ((op, _enc, dtype), (enc, parts)) in enumerate(zip(spec, parts_of)):
+            if out[k].dtype != txla._TABLE_DTYPES[dtype]:
+                out[k] = out[k].to(txla._TABLE_DTYPES[dtype])
+            txla.agg_merge_plain(out[k], torch.from_numpy(gidx), n, enc, _torch_parts(parts), op)
+    return out
+
+
+def _round_plain(tables, spec, frames):
+    out = [torch.from_numpy(t.copy()) for t in tables]
+    rnd = txla.pack_merge_round(frames, len(spec))
+    txla.agg_merge_round(out, [op for op, _e, _d in spec], rnd)
+    return out
+
+
+@pytest.mark.parametrize("n_frames", [1, 2, 4])
+@pytest.mark.parametrize("fields", sorted(ROUND_FIELDS))
+def test_round_plain_equals_frame_by_frame_and_agg_merge_fn(fields, n_frames):
+    spec = ROUND_FIELDS[fields]
+    tables, frames = _round_case(spec, n_frames, seed=7 * n_frames)
+    got = _round_plain(tables, spec, frames)
+    by_frame = _frame_by_frame(tables, spec, frames)
+    jax_out = _jax_round(tables, spec, frames)
+    for k in range(len(spec)):
+        assert got[k].dtype == txla._TABLE_DTYPES[spec[k][2]]
+        assert torch.equal(got[k].view(torch.int32), by_frame[k].view(torch.int32)), k
+        np.testing.assert_array_equal(got[k].numpy(), jax_out[k])
+
+
+def test_round_after_an_int32_to_float32_promotion():
+    # An all-integer round on int32 tables, then a quantized one after
+    # the value tables promote to float32 (the host step before the
+    # launch), as the tier does at its first round that is not
+    # all-integer.
+    exact = ROUND_FIELDS["exact_int32"]
+    quant = ROUND_FIELDS["stats_int8"]
+    tables, frames = _round_case(exact, 2, seed=3)
+    _t, later = _round_case(quant, 2, seed=4)
+    got = _round_plain(tables, exact, frames)
+    promoted = [t.to(txla._TABLE_DTYPES[dtype]) for t, (_o, _e, dtype) in zip(got, quant)]
+    got = _round_plain([t.numpy() for t in promoted], quant, later)
+    jax_out = _jax_round(_jax_round(tables, exact, frames), quant, later)
+    by_frame = _frame_by_frame([t.numpy() for t in _frame_by_frame(tables, exact, frames)], quant, later)
+    for k, (_op, _enc, dtype) in enumerate(quant):
+        assert got[k].dtype == txla._TABLE_DTYPES[dtype]
+        assert torch.equal(got[k].view(torch.int32), by_frame[k].view(torch.int32)), k
+        np.testing.assert_array_equal(got[k].numpy(), jax_out[k])
+
+
+def test_round_plain_names_the_frame_at_fault():
+    spec = ROUND_FIELDS["stats_bf16"]
+    tables, frames = _round_case(spec, 3, seed=5)
+    gidx, n, parts = frames[1]
+    bad = gidx.copy()
+    bad[7] = bad[3]
+    with pytest.raises(ValueError, match="frame 1: .*unique"):
+        _round_plain(tables, spec, [frames[0], (bad, n, parts), frames[2]])
+    out = frames[2][0].copy()
+    out[0] = tables[0].shape[0]
+    with pytest.raises(ValueError, match="frame 2: .*outside"):
+        _round_plain(tables, spec, [frames[0], frames[1], (out,) + frames[2][1:]])
+
+
+def _per_field_sealing(st, frames):
+    """What the tier sealed a device round into before a round became
+    one buffer: a frame's int32 targets, its row count, and a field's
+    parts as separate arrays (raw cast to the table dtype)."""
+    from bytewax_tpu_torch.engine import wire as twire
+
+    sealed = []
+    for frame in (fr for peer in frames for fr in peer):
+        parts = twire.decode_agg_parts(frame)
+        keys = parts["key"][1]
+        gidx = np.array([st._global_idx(st.key_to_kid[k]) for k in keys.tolist()], dtype=np.int32)
+        fields = {}
+        for name in st.kind.fields:
+            enc, p = parts[name]
+            want = st._merge_dtype(name)
+            if enc == "int8":
+                arrays = tuple(np.array(a) for a in p)
+            elif enc == "bf16":
+                arrays = (np.array(p).view(np.int16),)
+            else:
+                arrays = (np.asarray(p).astype(np.dtype(want)),)
+            fields[name] = (enc, arrays, want)
+        sealed.append((gidx, len(keys), fields))
+    return sealed
+
+
+@pytest.mark.parametrize(
+    "quant,ints", [("int8", False), ("bf16", False), ("int8", True)], ids=["int8", "bf16", "int8-exact"]
+)
+def test_sealed_round_packs_the_per_field_sealing(quant, ints):
+    keys = [f"st{i:05d}" for i in range(3000)]
+    frames = _peer_frames(keys, quant, ints, seed=17)
+    _jst, tst = _states("stats", 4, keys, quant_int=ints, demoted=False)
+    sealed = tst._seal_merge(frames)
+    rnd = sealed["round"]
+    want = _per_field_sealing(tst, frames)
+    assert rnd.n_frames == len(want) >= 2 and rnd.n_fields == len(tst.kind.fields)
+    assert sealed["dtypes"] == [tst._merge_dtype(name) for name in tst.kind.fields]
+    for f, (gidx, n, fields) in enumerate(want):
+        got_gidx, got_n = rnd.frame(f)
+        assert got_n == n
+        np.testing.assert_array_equal(got_gidx.numpy(), gidx)
+        for k, name in enumerate(tst.kind.fields):
+            enc, arrays, table_dtype = fields[name]
+            got_enc, got_parts = rnd.field(f, k, txla._TABLE_DTYPES[table_dtype])
+            assert got_enc == enc
+            assert len(got_parts) == len(arrays)
+            for g, w in zip(got_parts, arrays):
+                assert g.numpy().dtype == w.dtype
+                np.testing.assert_array_equal(g.numpy().view(np.uint8), w.view(np.uint8))

@@ -499,3 +499,58 @@ def test_gsync_knobs_inert_without_global_mesh_under_distributed(entry, monkeypa
     for k, v in items:
         oracle[k] = oracle.get(k, 0.0) + v
     assert dict(out) == oracle
+
+
+# -- the peer-major bucket layout --------------------------------------------
+
+
+def _procs_rows(procs, local, seed, n=300):
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    keys = torch.from_numpy(rng.randint(0, 5000, size=(local, n)).astype(np.int32))
+    vals = torch.from_numpy(rng.randint(-(2**31), 2**31, size=(local, n), dtype=np.int64).astype(np.int32))
+    ok = torch.from_numpy(rng.rand(local, n) < 0.9)
+    return [keys, vals], ok
+
+
+@pytest.mark.parametrize(
+    "procs,local,flags", [(2, 1, 1), (2, 2, 3), (4, 2, 0), (3, 3, 1)], ids=["p2l1", "p2l2_pos", "p4l2_raw", "p3l3"]
+)
+def test_peer_major_bucket_layout_equals_the_old_transpose(procs, local, flags, monkeypatch):
+    """The bucketing writes ``[peer, lane, dst of the peer, src, cap]``
+    itself, which the cluster-wide exchange used to make with one more
+    copy of the whole output (a view and ``transpose(0, 1).contiguous()``);
+    ``exchange_procs`` hands that buffer to the all-to-all as it is."""
+    import torch
+
+    from bytewax_tpu_torch.parallel import exchange
+    from bytewax_tpu_torch.parallel.mesh import World, make_mesh
+
+    lanes, ok = _procs_rows(procs, local, seed=procs * 10 + local)
+    n_shards = procs * local
+    _o, raw, _d = exchange.bucket_blocks_plain(lanes[:1], n_shards, 300, valid=ok)
+    capacity = int(raw.max())
+    flat = exchange.bucket_blocks_plain(lanes, n_shards, capacity, valid=ok, flags=flags, pad0=-9)[0]
+    n_out = flat.shape[0]
+    old = flat.view(n_out, procs, local, local, capacity).transpose(0, 1).contiguous()
+    direct = exchange.bucket_blocks_plain(lanes, n_shards, capacity, valid=ok, flags=flags, pad0=-9, peers=procs)[0]
+    assert direct.shape == old.shape and direct.is_contiguous()
+    assert torch.equal(direct, old)
+
+    sent = []
+
+    def all_to_all(world, send):
+        sent.append(send)
+        return send
+
+    monkeypatch.setattr(exchange, "all_to_all_procs", all_to_all)
+    mesh = make_mesh(devices=[torch.device("cpu")] * local)
+    world = World(0, procs, mesh.devices, None, "gloo", False, "one process standing for the cluster", None)
+    got = exchange.exchange_procs(
+        mesh, world, capacity, [[lane[s] for s in range(local)] for lane in lanes],
+        [ok[s] for s in range(local)], flags=flags, pad0=-9,
+    )
+    assert len(sent) == 1 and torch.equal(sent[0], old)
+    assert [tuple(g.shape) for g in got] == [(n_out, n_shards, capacity)] * local

@@ -1,6 +1,6 @@
 """The hand-written kernels (segment fold, segmented scan, shard
-bucketing, dequantize-and-merge) against their plain PyTorch versions,
-on the card.
+bucketing, dequantize-and-merge of a whole gsync round) against their
+plain PyTorch versions, on the card.
 
 Marked ``cuda``: without a CUDA card every case skips (the kernel has
 no CPU mode; the CPU tests hold the plain version to the JAX package).
@@ -690,3 +690,185 @@ def test_merge_kernel_refuses_a_repeated_target(dev):
         txla.agg_merge(table, torch.tensor([9000], dtype=torch.int32, device=dev), 1, "raw", [vals], "add")
     # The padding past n is not read: a repeated target there is fine.
     txla.agg_merge(table, gidx, 2, "raw", [vals], "add")
+
+
+# -- a whole gsync round in one launch ---------------------------------------
+
+#: Fields of the rounds: (op, encoding, table dtype) a field, as the
+#: tier's stats rounds ship them, and mixes of every encoding.
+ROUND_FIELDS = {
+    "stats_int8": (("min", "int8", "float32"), ("max", "int8", "float32"),
+                   ("add", "int8", "float32"), ("add", "raw", "int32")),
+    "stats_bf16": (("min", "bf16", "float32"), ("max", "bf16", "float32"),
+                   ("add", "bf16", "float32"), ("add", "raw", "int32")),
+    "exact_int32": (("min", "raw", "int32"), ("max", "raw", "int32"),
+                    ("add", "raw", "int32"), ("add", "raw", "int32")),
+    "mixed": (("add", "raw", "float32"), ("min", "int8", "int32"), ("max", "bf16", "int32")),
+}
+#: Frames of a round: (padded length, real rows), in peer order.
+ROUND_FRAMES = ((8192, 8190), (16384, 16380), (8192, 1), (8192, 5000))
+
+
+def _round_case(fields, n_frames, seed):
+    """A round of ``n_frames`` frames over ``fields``: the tables (numpy,
+    a third of their slots folded already) and, per frame, the padded
+    targets, the real row count and each field's ``(enc, parts)``
+    padded to the frame's length.  Frames share slots, so a slot takes
+    several frames' rows, in order."""
+    tables, frames = None, []
+    for f in range(n_frames):
+        padded, n = ROUND_FRAMES[f % len(ROUND_FRAMES)]
+        gidx, parts_of = None, []
+        for k, (op, enc, dtype) in enumerate(fields):
+            table, g, parts = _merge_case(op, enc, dtype, 16384, min(n, 16380), seed + 31 * f + k)
+            if f == 0:
+                tables = (tables or []) + [table]
+            gidx = g[:padded] if gidx is None else gidx
+            parts_of.append((enc, tuple(_pad_part(enc, p, padded) for p in parts)))
+        frames.append((gidx, n, parts_of))
+    return tables, frames
+
+
+def _pad_part(enc, part, padded):
+    if enc == "int8" and part.dtype == np.float32:
+        return part[: -(-padded // 1024)]
+    return part[:padded]
+
+
+def _round_on(dev, frames):
+    from bytewax_tpu_torch.engine import xla as txla
+
+    return txla.pack_merge_round(frames, len(frames[0][2]), pin=dev.type == "cuda").to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_frames", [1, 2, 4])
+@pytest.mark.parametrize("fields", sorted(ROUND_FIELDS))
+def test_round_merge_matches_plain_bit_for_bit(dev, fields, n_frames):
+    from bytewax_tpu_torch.engine import xla as txla
+    from bytewax_tpu_torch.ops import merge_kernel
+
+    spec = ROUND_FIELDS[fields]
+    tables, frames = _round_case(spec, n_frames, seed=7 * n_frames)
+    ops = [op for op, _enc, _dt in spec]
+    rnd = _round_on(dev, frames)
+    # The plain version on the card too: the NaN an inf - inf makes has
+    # other bits on the host's CPU.
+    want = [torch.from_numpy(t.copy()).to(dev) for t in tables]
+    txla.agg_merge_round_plain(want, ops, rnd)
+    outs = []
+    for _ in range(2):
+        got = [torch.from_numpy(t.copy()).to(dev) for t in tables]
+        before = merge_kernel.launches
+        txla.agg_merge_round(got, ops, rnd)
+        assert merge_kernel.launches == before + 1
+        outs.append([_bits(g) for g in got])
+    for k in range(len(spec)):
+        assert torch.equal(outs[0][k], outs[1][k]), "two runs differ"
+        assert torch.equal(outs[0][k], _bits(want[k])), (fields, n_frames, k)
+
+
+@pytest.mark.cuda
+def test_round_merge_names_the_frame_at_fault(dev):
+    from bytewax_tpu_torch.engine import xla as txla
+
+    spec = ROUND_FIELDS["stats_int8"]
+    tables, frames = _round_case(spec, 3, seed=5)
+    ops = [op for op, _enc, _dt in spec]
+    gidx, n, parts = frames[1]
+    bad = gidx.copy()
+    bad[7] = bad[3]
+    frames[1] = (bad, n, parts)
+    got = [torch.from_numpy(t.copy()).to(dev) for t in tables]
+    with pytest.raises(ValueError, match="frame 1 .*repeat"):
+        txla.agg_merge_round(got, ops, _round_on(dev, frames))
+    out = gidx.copy()
+    out[0] = tables[0].shape[0]
+    frames[1] = (gidx, n, parts)
+    frames[2] = (out, frames[2][1], frames[2][2])
+    with pytest.raises(ValueError, match="frame 2 .*outside"):
+        txla.agg_merge_round(got, ops, _round_on(dev, frames))
+
+
+# -- the one-pass bucketing: edges, back-to-back calls, graphs, layout -------
+
+
+def _bucket_lanes(dev, n_blocks, n, seed, span=10_000):
+    rng = np.random.RandomState(seed)
+    keys = torch.from_numpy(rng.randint(0, span, size=(n_blocks, n)).astype(np.int32)).to(dev)
+    vals = torch.from_numpy(rng.randint(-(2**31), 2**31, size=(n_blocks, n), dtype=np.int64).astype(np.int32))
+    ok = torch.from_numpy(rng.rand(n_blocks, n) < 0.9).to(dev)
+    return [keys, vals.to(dev)], ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_shards", [(0, 4), (1, 64), (4095, 64), (4097, 1), (5000, 64), (70_001, 7)])
+def test_bucket_kernel_edge_sizes(dev, n, n_shards):
+    # No rows, one row, one row short of a chunk and one past it, one
+    # shard, 64 shards; two blocks, every flag.
+    lanes, ok = _bucket_lanes(dev, 2, n, seed=n + n_shards)
+    capacity = max(1, 2 * n // n_shards)
+    _bucket_both(dev, lanes, n_shards, capacity, valid=ok, flags=exchange.DECODE | exchange.POS,
+                 pad0=-2, pos_base=3, pos_pad=-4)
+
+
+@pytest.mark.cuda
+def test_bucket_kernel_more_chunks_than_resident(dev):
+    # 2^24 rows in one block: 4,096 chunks, more than the card holds at
+    # once, so chunks look back on chunks that finished long before.
+    lanes, ok = _bucket_lanes(dev, 1, 1 << 24, seed=11)
+    _o, raw, _d = exchange.bucket_blocks_plain(lanes[:1], 4, 1 << 24, valid=ok)
+    _bucket_both(dev, lanes, 4, int(raw.max()), valid=ok, flags=exchange.DECODE, pad0=5)
+
+
+@pytest.mark.cuda
+def test_bucket_kernel_back_to_back_calls_need_no_reset(dev):
+    # Calls of different shapes issued with no sync between them, on one
+    # workspace: each call's status words carry its own tag.
+    shapes = ((4, 1 << 18, 4), (2, 5000, 64), (4, 1 << 18, 4), (1, 3, 2))
+    cases, got = [], []
+    for i, (n_blocks, n, n_shards) in enumerate(shapes):
+        lanes, ok = _bucket_lanes(dev, n_blocks, n, seed=i)
+        kw = dict(valid=ok, flags=exchange.DECODE | exchange.POS, pad0=7, pos_pad=-1)
+        cases.append((lanes, n_shards, max(1, n // n_shards), kw))
+        got.append(exchange.bucket_blocks(lanes, n_shards, max(1, n // n_shards), **kw))
+    torch.cuda.synchronize()
+    for (lanes, n_shards, capacity, kw), g in zip(cases, got):
+        want = exchange.bucket_blocks_plain(lanes, n_shards, capacity, **kw)
+        for a, b in zip(g, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bucket_kernel_replayed_in_a_cuda_graph(dev):
+    lanes, ok = _bucket_lanes(dev, 4, 1 << 16, seed=3)
+    kw = dict(valid=ok, flags=exchange.DECODE, pad0=9)
+    want = exchange.bucket_blocks_plain(lanes, 4, 1 << 14, **kw)
+    exchange.bucket_blocks(lanes, 4, 1 << 14, **kw)  # the workspace, before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = exchange.bucket_blocks(lanes, 4, 1 << 14, **kw)
+    for _ in range(3):
+        for g in got:
+            g.fill_(-123)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("procs,local", [(2, 1), (2, 4), (8, 8)])
+def test_bucket_kernel_peer_major_layout(dev, procs, local):
+    # The cluster-wide exchange's layout, written by the kernel: the
+    # plain version's, and the old transpose of the destination-major
+    # output.
+    lanes, ok = _bucket_lanes(dev, local, 3000, seed=procs + local)
+    n_shards = procs * local
+    kw = dict(valid=ok, flags=exchange.DECODE | exchange.POS, pad0=-1, pos_pad=-2)
+    out, _c, _d = _bucket_both(dev, lanes, n_shards, 3000 // n_shards + 40, peers=procs, **kw)
+    flat = exchange.bucket_blocks(lanes, n_shards, 3000 // n_shards + 40, **kw)[0]
+    n_out = flat.shape[0]
+    old = flat.view(n_out, procs, local, local, flat.shape[-1]).transpose(0, 1).contiguous()
+    assert torch.equal(out, old)
