@@ -386,21 +386,12 @@ def _read_rows_dlq(
 
 
 def _nul_lines(lines: np.ndarray) -> bool:
-    """Whether any line of a split chunk holds a NUL character.  Fixed
-    width string arrays pad with zeros, so a zero code unit counts
-    only before a line's last nonzero one (a NUL that ends a line is
-    already lost to the padding)."""
-    if lines.dtype.kind not in "US":
-        return any("\x00" in ln for ln in lines.tolist())
-    if not len(lines) or not lines.dtype.itemsize:
-        return False
-    unit = np.uint8 if lines.dtype.kind == "S" else np.uint32
-    width = lines.dtype.itemsize // np.dtype(unit).itemsize
-    codes = np.ascontiguousarray(lines).view(unit).reshape(len(lines), width)
-    nonzero = codes != 0
-    length = width - np.argmax(nonzero[:, ::-1], axis=1)
-    length[~nonzero.any(axis=1)] = 0
-    return bool((~nonzero & (np.arange(width) < length[:, None])).any())
+    """Whether any line of a split chunk holds a NUL character.  In
+    dead-letter mode a chunk holding a NUL splits into an object-dtype
+    array of exact lines (:class:`~bytewax_tpu_torch.ops.text.LineBatcher`),
+    so only such an array can hold one: a fixed-width array would have
+    dropped a NUL that ends a line."""
+    return lines.dtype == object and any("\x00" in ln for ln in lines.tolist())
 
 
 class _CSVPartition(StatefulSourcePartition[Dict[str, str], int]):

@@ -1656,7 +1656,7 @@ class _StatefulBatchRt(_OpRt):
             self._pipe = None
         # The global tier's overlapped collective lane tears down
         # with the dispatch pipelines (clean exits have already
-        # fenced it; a fault unwind waits out the in-flight round).
+        # fenced it; a fault unwind runs its sealed rounds out).
         if self.agg is not None:
             lane_shutdown = getattr(self.agg, "lane_shutdown", None)
             if lane_shutdown is not None:

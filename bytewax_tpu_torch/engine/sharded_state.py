@@ -23,9 +23,12 @@ This is the keyed shuffle of the reference collapsed into the step:
 ``hash(key) → shard → bucket → fold``, with no host hop on the
 exchange.
 
-Snapshots stay in the host tier's per-key scalar format, so recovery
-is interchangeable between the host tier, the single-device tier, any
-mesh size, and the JAX package's stores.
+Snapshots of the per-process tiers stay in the host tier's per-key
+scalar format, so recovery is interchangeable between the host tier,
+the single-device tier, any mesh size, and the JAX package's stores.
+The cluster-wide tier writes its own rows instead (sealed rounds and
+full-aggregate baselines, in the JAX package's format), which resume
+only into that tier.
 
 The exchange never drops rows: the host sizes each dispatch's bucket
 capacity to the batch's exact per-(source, destination) maximum
@@ -65,6 +68,16 @@ __all__ = [
 _MIN_CAP_PER_SHARD = 128
 _MIN_ROWS_PER_SHARD = 64
 
+#: Store row-key prefixes of the cluster-wide tier's own recovery rows
+#: (its store-composable overlap), the JAX package's: NUL-prefixed so
+#: they never collide with user keys.  The rows ride the recovery
+#: ``snaps`` format; the keys are salted a process
+#: (:meth:`GlobalAggState._mine_local_key`) so that route-scoped resume
+#: reads give each process exactly its own rows.
+_GSYNC_KEY_PREFIX = "\x00gsync-"
+_GSYNC_BASE_KEY = "\x00gsync-base\x00"
+_GSYNC_ROUND_KEY = "\x00gsync-round\x00"
+
 
 def _gsync_overlap() -> bool:
     """Whether the cluster-wide tier double-buffers its exchange rounds
@@ -86,6 +99,24 @@ def _gsync_depth() -> int:
         )
         raise ValueError(msg) from None
     return max(1, depth)
+
+
+def _gsync_baseline_every() -> int:
+    """With a recovery store under ``BYTEWAX_TPU_GSYNC_OVERLAP=1``, how
+    many data-bearing exchange rounds ride between full-aggregate
+    baseline rows (``BYTEWAX_TPU_GSYNC_BASELINE_EVERY``, default 8):
+    resume replays at most this many sealed rounds on top of the latest
+    baseline."""
+    raw = os.environ.get("BYTEWAX_TPU_GSYNC_BASELINE_EVERY", "8") or "8"
+    try:
+        every = int(raw)
+    except ValueError:
+        msg = (
+            f"BYTEWAX_TPU_GSYNC_BASELINE_EVERY={raw!r} is not an "
+            "integer; use the rounds-per-baseline cadence"
+        )
+        raise ValueError(msg) from None
+    return max(1, every)
 
 
 def _shard_devices() -> Optional[List[torch.device]]:
@@ -128,9 +159,10 @@ def make_agg_state(kind: str, driver=None):
       driver has a cluster mesh, ``BYTEWAX_TPU_DISTRIBUTED=1``,
       ``BYTEWAX_TPU_GLOBAL_EXCHANGE`` is not ``0``, ``torch.distributed``
       is up and spans exactly the cluster's processes (more than one),
-      and the flow has no recovery store.  With a store the JAX package
-      takes this tier only under ``BYTEWAX_TPU_GSYNC_OVERLAP=1`` (its
-      store-composable overlap), which the port refuses (ROADMAP A9c);
+      and the flow has no recovery store, or has one and
+      ``BYTEWAX_TPU_GSYNC_OVERLAP=1`` is set (the store-composable
+      overlap: the tier snapshots its sealed rounds in recovery
+      ``snaps`` rows and replays them on resume);
     - **per-process mesh** (:class:`ShardedAggState`) when
       :func:`_shard_devices` gives more than one device;
     - **single-device slot table** otherwise.
@@ -166,16 +198,6 @@ def make_agg_state(kind: str, driver=None):
             )
             raise RuntimeError(msg) from ex
         if eligible:
-            if driver.store is not None:
-                msg = (
-                    "BYTEWAX_TPU_DISTRIBUTED=1 with a recovery store and "
-                    "BYTEWAX_TPU_GSYNC_OVERLAP=1 asks for the cluster-wide "
-                    "tier's store-composable overlap, which the torch port "
-                    "does not have yet (ROADMAP A9c); run with "
-                    "BYTEWAX_TPU_GSYNC_OVERLAP=0 (per-process tiers with the "
-                    "store) or BYTEWAX_TPU_GLOBAL_EXCHANGE=0"
-                )
-                raise NotImplementedError(msg)
             return GlobalAggState(kind, driver)
     devices = _shard_devices()
     if devices is None:
@@ -836,7 +858,14 @@ class GlobalAggState:
     runs on one ordered lane a driver (``BYTEWAX_TPU_GSYNC_DEPTH`` rounds
     in flight) while the run loop computes later epochs.
 
-    Scope: flows without a recovery store (``make_agg_state``).
+    With a recovery store (only under the overlap, ``make_agg_state``)
+    the tier's durable unit is the sealed round: every data-bearing
+    round stashes a row of this process's part of it, and every
+    ``BYTEWAX_TPU_GSYNC_BASELINE_EVERY`` rounds a fenced full-aggregate
+    baseline row replaces the round rows it covers.  Resume installs the
+    latest baseline and replays the rounds after it at the first flush,
+    through the same kernels.  The rows are the JAX package's, so a
+    store crosses between the packages both ways.
     """
 
     global_exchange = True
@@ -919,6 +948,15 @@ class GlobalAggState:
         #: part the int32 tables cannot hold).
         self._dev_fields: Optional[Dict[str, torch.Tensor]] = None
         self._merge_demoted = _wire.wire_mode() == "pickle"
+        #: The store-composable overlap: data-bearing rounds so far,
+        #: the round rows not yet covered by a baseline, rows waiting
+        #: for the next epoch snapshot, resumed rows waiting for the
+        #: first flush, and whether a baseline row is live.
+        self._data_rounds = 0
+        self._outstanding_rounds: List[str] = []
+        self._pending_snap_rows: List[Tuple[str, Any]] = []
+        self._resume_rows: List[Tuple[str, Any]] = []
+        self._base_written = False
         #: The overlapped exchange lane, one a driver, shared by every
         #: step of this tier: seal order is the agreed round order, so
         #: the collectives launch in the same sequence on every process.
@@ -1105,11 +1143,25 @@ class GlobalAggState:
 
     def lane_shutdown(self) -> None:
         """Teardown (driver ``pipeline_shutdown``, fault unwinds): stop
-        the driver-shared lane; pending work exists only on a fault path
-        and is dropped."""
+        the driver-shared lane.  Pending work exists only on a fault
+        path, and its sealed rounds run to their end instead of being
+        dropped (a failing one is passed over): a round is sealed only
+        after the agreed metadata rounds, so every process sealed it,
+        and a peer may be inside its all-to-all already.  Dropped on
+        this process, the peer's collective would wait out the
+        transport's timeout, or pair with this process's first
+        collective after the restart (the world outlives the restart)."""
         lane, self._lane = self._lane, None
         if lane is not None:
-            lane.drop_pending()
+            while lane.pending():
+                try:
+                    lane.flush()
+                except Exception:  # noqa: BLE001 — already on a fault path
+                    import logging
+
+                    logging.getLogger(__name__).warning(
+                        "a sealed gsync round failed while its lane shut down", exc_info=True
+                    )
             lane.shutdown()
             if getattr(self.driver, "_gsync_lane", None) is lane:
                 self.driver._gsync_lane = None
@@ -1144,8 +1196,11 @@ class GlobalAggState:
         cluster has nothing buffered skips the device step but still
         runs the metadata round.  The metadata rounds run here, on the
         main thread; under overlap the sealed device phase runs on the
-        lane."""
+        lane.  With a store, the first flush of a resumed run replays
+        the store's rounds first, and each data-bearing round stashes
+        its row (:meth:`_stash_round`)."""
         driver = self.driver
+        self._maybe_replay_resume()
         n_local = int(sum(len(a) for a in self._buf_vals))
         local_new = sorted(k for k in self._dense_keys if k not in self.key_to_kid)
         quant = self._quant
@@ -1171,6 +1226,7 @@ class GlobalAggState:
             self._buf_ids.clear()
             self._buf_vals.clear()
             return
+        self._data_rounds += 1
         if quant != "off":
             # The partial frames rode the round; seal the merge on main
             # (decode, targets against the main-owned key_to_kid) and
@@ -1188,6 +1244,15 @@ class GlobalAggState:
                 total_rows,
                 1,
                 f"{n_frames} quantized partial frame(s) [{quant}, {where} merge]",
+            )
+            self._stash_round(
+                lambda: {
+                    "fmt": "quant",
+                    "round": self._data_rounds,
+                    "frames": peer_frames,
+                    "new": merged_new,
+                    "all_int": all_int,
+                }
             )
             return
         if self.dtype is None:
@@ -1250,6 +1315,19 @@ class GlobalAggState:
             lambda: self._exchange_chunks(step, kids_p, vals_p, valid_p, chunk_rows, chunk_pd, n_steps)
         )
         self._note_flush(n_local, total_rows, n_steps, f"capacity {capacity}")
+        self._stash_round(
+            lambda: {
+                "fmt": "exact",
+                "round": self._data_rounds,
+                "kids": kids,
+                "vals": vals_cat,
+                "new": merged_new,
+                "chunk_pd": chunk_pd,
+                "capacity": capacity,
+                "n_steps": n_steps,
+                "dtype": np.dtype(_NP_OF[self.dtype]).name,
+            }
+        )
 
     def _exchange_chunks(
         self,
@@ -1483,26 +1561,288 @@ class GlobalAggState:
             ops.append(op)
         _xla.agg_merge_round([tables[name] for name in self.kind.fields], ops, rnd.to(dev))
 
+    # -- the store-composable overlap -----------------------------------------
+
+    def _mine_local_key(self, base: str) -> str:
+        """A deterministic store row key from ``base`` whose worker lane
+        (``adler32 % worker_count``: the route the store stamps and the
+        driver's resume reads scope by) is one of this process's, so the
+        row comes back to the process that wrote it."""
+        d = self.driver
+        salt = 0
+        while True:
+            key = f"{base}{salt}"
+            if d.is_local(zlib.adler32(key.encode()) % d.worker_count):
+                return key
+            salt += 1
+
+    def _base_key(self) -> str:
+        return self._mine_local_key(_GSYNC_BASE_KEY)
+
+    def _round_key(self, round_no: int) -> str:
+        return self._mine_local_key(f"{_GSYNC_ROUND_KEY}{round_no:08d}\x00")
+
+    def _stash_round(self, payload_fn) -> None:
+        """With a recovery store, make this data-bearing round durable:
+        stash a round row for this close's snapshot, or, every
+        ``BYTEWAX_TPU_GSYNC_BASELINE_EVERY`` rounds, fence the lane (the
+        captured table must hold every sealed round) and stash a
+        full-aggregate baseline row instead (the same key each time, so
+        the store's latest row supersedes), with tombstones for the
+        round rows it covers.  The decision derives from agreed values,
+        so every process stashes rows for the same rounds."""
+        if self.driver.store is None:
+            return
+        if self._data_rounds % _gsync_baseline_every() == 0:
+            self.fence()
+            self._pending_snap_rows.append((self._base_key(), self._capture_baseline()))
+            self._base_written = True
+            self._pending_snap_rows.extend((k, None) for k in self._outstanding_rounds)
+            self._outstanding_rounds = []
+            return
+        key = self._round_key(self._data_rounds)
+        self._pending_snap_rows.append((key, payload_fn()))
+        self._outstanding_rounds.append(key)
+
+    def _layout(self) -> str:
+        return (
+            f"{self.n_shards} shard(s) of {self.cap_per_shard} slots, "
+            f"{self.local_devs} a process"
+        )
+
+    def _capture_baseline(self) -> Dict[str, Any]:
+        """The full merged aggregate (the caller fenced the lane) in the
+        JAX package's host format, so that a baseline written by either
+        package installs in the other: quantized, ``fields`` holds a
+        float64 table a field over every shard; exact, ``blocks`` holds
+        ``{field: {global offset: block}}`` of this process's shards."""
+        base: Dict[str, Any] = {
+            "round": self._data_rounds,
+            "key_to_kid": dict(self.key_to_kid),
+            "shard_fill": list(self._shard_fill),
+            "procs": self.driver.proc_count,
+        }
+        if self._quant != "off":
+            if self._dev_fields is not None:
+                fields = self._fetch_dev_fields()
+            elif self._host_fields is not None:
+                fields = {n: a.copy() for n, a in self._host_fields.items()}
+            else:
+                fields = None
+            base.update(fmt="quant", fields=fields, quant_int=self._quant_int)
+            return base
+        blocks = None
+        if self._fields is not None:
+            cap = self.cap_per_shard
+            lo = self._proc_shards[self.driver.proc_id][0]
+            blocks = {
+                name: {(lo + d) * cap: flat[d * cap : (d + 1) * cap] for d in range(self.local_devs)}
+                for name, flat in self._local_host_fields().items()
+            }
+        base.update(
+            fmt="exact",
+            blocks=blocks,
+            dtype=np.dtype(_NP_OF[self.dtype]).name if self.dtype is not None else None,
+        )
+        return base
+
+    def _check_baseline_layout(self, base: Dict[str, Any]) -> None:
+        """Refuse a baseline laid out for another cluster: another
+        process count (as the JAX package refuses), or the same count
+        over another number of shards or slots, whose kids and table
+        offsets would land in the wrong slots here."""
+        if base.get("procs") != self.driver.proc_count:
+            msg = (
+                "the global-exchange tier cannot rescale on resume: "
+                f"the store's baseline was written by {base.get('procs')} "
+                f"process(es), this cluster runs {self.driver.proc_count}; "
+                "resume at the original size or run with "
+                "BYTEWAX_TPU_GLOBAL_EXCHANGE=0"
+            )
+            raise RuntimeError(msg)
+        shards = len(base["shard_fill"])
+        cap = None
+        if base["fmt"] == "quant" and base["fields"] is not None:
+            cap = len(next(iter(base["fields"].values()))) // max(shards, 1)
+        elif base["fmt"] == "exact" and base["blocks"] is not None:
+            cap = len(next(iter(next(iter(base["blocks"].values())).values())))
+        if shards != self.n_shards or cap not in (None, self.cap_per_shard):
+            theirs = f"{shards} shard(s)" + (f" of {cap} slots" if cap is not None else "")
+            msg = (
+                "the global-exchange tier cannot install the store's "
+                f"baseline: it was laid out for {theirs} over "
+                f"{base['procs']} process(es), this cluster has "
+                f"{self._layout()}; resume with the device count a "
+                "process the store was written with, or run with "
+                "BYTEWAX_TPU_GLOBAL_EXCHANGE=0"
+            )
+            raise RuntimeError(msg)
+
+    def _install_baseline(self, base: Dict[str, Any]) -> None:
+        """Install a baseline row (see :meth:`_capture_baseline`): one
+        host→device copy a field (a run of shards on one device),
+        never one a block."""
+        self._check_baseline_layout(base)
+        self.key_to_kid = dict(base["key_to_kid"])
+        self._shard_fill = list(base["shard_fill"])
+        self._data_rounds = base["round"]
+        self._base_written = True
+        if base["fmt"] == "quant":
+            self._quant_int = base["quant_int"]
+            fields = base["fields"]
+            if fields is None:
+                return
+            if self._merge_demoted:
+                self._host_fields = {n: np.asarray(a, dtype=np.float64) for n, a in fields.items()}
+                return
+            self._bind_device()
+            self._dev_fields = {}
+            h2d = 0
+            for name, arr in fields.items():
+                host = np.ascontiguousarray(np.asarray(arr).astype(self._merge_dtype(name)))
+                h2d += host.nbytes
+                self._dev_fields[name] = torch.from_numpy(host).to(self.device)
+            _flight.note_transfer("h2d", h2d)
+            return
+        if base["dtype"] is not None:
+            self.dtype = torch.int32 if base["dtype"] == "int32" else torch.float32
+        blocks = base["blocks"]
+        if blocks is None:
+            return
+        cap = self.cap_per_shard
+        lo = self._proc_shards[self.driver.proc_id][0]
+        starts = [(lo + d) * cap for d in range(self.local_devs)]
+        per_field = {}
+        h2d = 0
+        for name in self.kind.fields:
+            per = blocks[name]
+            missing = [start for start in starts if start not in per]
+            if missing:
+                msg = (
+                    "the global-exchange tier cannot install the store's "
+                    f"baseline: it holds no block at offset(s) {missing} "
+                    f"of field {name!r}, which this process's shards "
+                    f"cover ({self._layout()})"
+                )
+                raise RuntimeError(msg)
+            host = np.concatenate([np.asarray(per[start]) for start in starts]).astype(_NP_OF[self.dtype])
+            h2d += host.nbytes
+            per_field[name] = _blocks_of(self.mesh, host, cap)
+        _flight.note_transfer("h2d", h2d)
+        self._fields = [{name: per_field[name][d] for name in self.kind.fields} for d in range(self.local_devs)]
+
+    def _maybe_replay_resume(self) -> None:
+        """Install the resumed rows at the first flush, a point every
+        process reaches in the same order, so the replayed collective
+        rounds launch in the same sequence on every process: the latest
+        baseline, then, in round order, every round row after it."""
+        if not self._resume_rows:
+            return
+        import time
+
+        t0 = time.perf_counter()
+        rows, self._resume_rows = self._resume_rows, []
+        baseline = None
+        rounds = []
+        for key, payload in rows:
+            if key.startswith(_GSYNC_BASE_KEY):
+                if baseline is None or payload["round"] > baseline["round"]:
+                    baseline = payload
+            else:
+                rounds.append(payload)
+        base_no = 0
+        if baseline is not None:
+            self._install_baseline(baseline)
+            base_no = baseline["round"]
+            _flight.RECORDER.count("gsync_baseline_installs")
+        replayed = []
+        for payload in sorted(rounds, key=lambda p: p["round"]):
+            if payload["round"] <= base_no:
+                continue
+            self._replay_round(payload)
+            replayed.append(payload["round"])
+            self._outstanding_rounds.append(self._round_key(payload["round"]))
+            self._data_rounds = max(self._data_rounds, payload["round"])
+        self._data_rounds = max(self._data_rounds, base_no)
+        seconds = time.perf_counter() - t0
+        _flight.RECORDER.count("gsync_replayed_rounds", len(replayed))
+        _flight.RECORDER.count("gsync_replay_seconds", seconds)
+        if os.environ.get("BYTEWAX_TPU_GLOBAL_EXCHANGE_DEBUG") == "1":
+            import sys
+
+            sys.stderr.write(
+                f"global-exchange: proc {self.driver.proc_id} resumed "
+                f"baseline round {base_no if baseline is not None else None}, "
+                f"replayed rounds {replayed} in {seconds:.3f}s\n"
+            )
+            sys.stderr.flush()
+
+    def _replay_round(self, payload: Dict[str, Any]) -> None:
+        """Run one sealed round again from its row, inline (replay comes
+        before anything rides the lane): a quantized round through one
+        merge launch, an exact round through the bucket and fold
+        kernels around the all-to-all, with the chunk layout and
+        capacity it was sealed with (every process replays the same
+        rounds, so the collectives pair up)."""
+        self._assign_kids(payload["new"])
+        if payload["fmt"] == "quant":
+            self._quant_int = self._quant_int and payload["all_int"]
+            self._apply_merge(self._seal_merge(payload["frames"]))
+            return
+        if self.dtype is None:
+            self.dtype = torch.int32 if payload["dtype"] == "int32" else torch.float32
+        self._ensure_fields()
+        chunk_pd = payload["chunk_pd"]
+        n_steps = payload["n_steps"]
+        chunk_rows = chunk_pd * self.local_devs
+        pad_total = n_steps * chunk_rows
+        kids = np.asarray(payload["kids"])
+        n_local = len(kids)
+        kids_p = np.zeros(pad_total, dtype=np.int32)
+        kids_p[:n_local] = kids
+        vals_p = np.zeros(pad_total, dtype=_NP_OF[self.dtype])
+        vals_p[:n_local] = payload["vals"]
+        valid_p = np.zeros(pad_total, dtype=bool)
+        valid_p[:n_local] = True
+        _flight.note_transfer("h2d", kids_p.nbytes + vals_p.nbytes + valid_p.nbytes)
+        step = self._step_for(chunk_pd, payload["capacity"])
+        self._exchange_chunks(step, kids_p, vals_p, valid_p, chunk_rows, chunk_pd, n_steps)
+
     # -- recovery / emission --------------------------------------------------
 
     def load(self, key: str, state: Any) -> None:
         self.load_many([(key, state)])
 
     def load_many(self, items) -> None:
-        """Resuming into this tier needs the store-composable overlap,
-        which the port does not have (ROADMAP A9c); ``make_agg_state``
-        never builds this tier with a store."""
-        msg = (
-            "the cluster-wide exchange tier cannot resume store rows in "
-            "the torch port (ROADMAP A9c); resume with "
-            "BYTEWAX_TPU_GLOBAL_EXCHANGE=0"
-        )
-        raise NotImplementedError(msg)
+        """Defer resumed store rows for replay at the first flush.  Only
+        the tier's own rows (sealed rounds and baselines) resume: a
+        store of user-key rows from a per-process tier cannot page into
+        this tier (kids are a cluster-wide agreement, and resume reads
+        are route-scoped).  Nothing falls back to another tier: peers
+        that built this one would block in its collectives."""
+        for key, state in items:
+            if not key.startswith(_GSYNC_KEY_PREFIX):
+                msg = (
+                    "the global-exchange tier cannot resume "
+                    "user-key state written by another tier "
+                    f"(got row {key!r}); resume this store with "
+                    "BYTEWAX_TPU_GLOBAL_EXCHANGE=0"
+                )
+                raise RuntimeError(msg)
+            self._resume_rows.append((key, state))
 
     def snapshots_for(self, keys: List[str]) -> List[Tuple[str, Any]]:
-        # Only reachable with no recovery store: the epoch snapshot
-        # pass discards these.
-        return [(k, None) for k in keys]
+        if self.driver.store is None:
+            # The epoch snapshot pass discards these.
+            return [(k, None) for k in keys]
+        # The tier's durable unit is the sealed round or baseline row,
+        # never a user key's (the state lies merged on the device; a
+        # per-key row would force the fence the overlap avoids).
+        rows, self._pending_snap_rows = self._pending_snap_rows, []
+        tombstones = sum(1 for _k, p in rows if p is None)
+        _flight.RECORDER.count("gsync_store_rows", len(rows) - tombstones)
+        _flight.RECORDER.count("gsync_store_tombstones", tombstones)
+        return rows
 
     def _local_host_fields(self) -> Dict[str, np.ndarray]:
         """Every field over this process's shards, ``[local_devs *
@@ -1556,6 +1896,18 @@ class GlobalAggState:
                 kid = self.key_to_kid[key]
                 if kid % self.n_shards in my_shards:
                     out.append((key, _final_of(self.kind_name, blocks, self._global_idx(kid) - lo)))
+        if self.driver.store is not None:
+            # The aggregate was just emitted and resets: this close's
+            # own unwritten round rows drop, the durable rounds and the
+            # baseline get tombstones (a store resumed after EOF
+            # replays nothing).
+            dropped = {k for k, p in self._pending_snap_rows if p is not None}
+            self._pending_snap_rows = [(k, p) for k, p in self._pending_snap_rows if p is None]
+            self._pending_snap_rows.extend((k, None) for k in self._outstanding_rounds if k not in dropped)
+            self._outstanding_rounds = []
+            if self._base_written:
+                self._pending_snap_rows.append((self._base_key(), None))
+                self._base_written = False
         self.key_to_kid.clear()
         self._shard_fill = [0] * self.n_shards
         self._fields = None

@@ -211,26 +211,34 @@ class LineBatcher:
     def _split(self, body: bytes) -> np.ndarray:
         if self._on_error != "dlq" or self._encoding is None:
             return split_lines(body, self._encoding)
-        try:
-            return split_lines(body, self._encoding)
-        except UnicodeDecodeError:
-            # Poison bytes somewhere in the chunk: re-split at the
-            # byte level (always decodable) and decode per line, so
-            # only the offending line(s) dead-letter.
-            good: List[str] = []
-            for ln in split_lines(body, None).tolist():
-                try:
-                    good.append(ln.decode(self._encoding))
-                except UnicodeDecodeError as ex:
-                    self.dead.append(
-                        {
-                            "error": f"{type(ex).__name__}: {ex}",
-                            "payload": repr(ln),
-                        }
-                    )
-            if not good:
-                return np.empty(0, dtype="U1")
-            return np.array(good)
+        nul = b"\x00" in body
+        if not nul:
+            try:
+                return split_lines(body, self._encoding)
+            except UnicodeDecodeError:
+                pass
+        # Poison bytes somewhere in the chunk: split at the byte level
+        # and decode per line, so only the offending line(s)
+        # dead-letter.  A chunk holding a NUL splits this way too, into
+        # an object-dtype array of each line's exact text: a
+        # fixed-width array would drop a NUL that ends a line, and the
+        # consumer could no longer see (or dead-letter) it.
+        good: List[str] = []
+        for ln in body.split(b"\n")[:-1]:
+            if ln.endswith(b"\r"):
+                ln = ln[:-1]
+            try:
+                good.append(ln.decode(self._encoding))
+            except UnicodeDecodeError as ex:
+                self.dead.append(
+                    {
+                        "error": f"{type(ex).__name__}: {ex}",
+                        "payload": repr(ln),
+                    }
+                )
+        if not good:
+            return np.empty(0, dtype="U1")
+        return np.array(good, dtype=object) if nul else np.array(good)
 
     def feed(self, raw: bytes) -> Optional[ArrayBatch]:
         data = self._carry + raw

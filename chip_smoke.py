@@ -58,7 +58,7 @@ Phases, each of which raises on any failure:
    at 10,000 stations with no store, synchronous checkpoints, delta and
    async commits (``BYTEWAX_TPU_CKPT_DELTA``/``_ASYNC``), and those
    with a crash at the seal of epoch 8 (``BYTEWAX_TPU_FAULTS``) and a
-   resume; ``anomaly_flow`` at 2^20 sensors over 2 batches,
+   resume; ``anomaly_flow`` at 2^19 sensors over 2 batches,
    synchronous, delta and async, and those with a crash at the seal
    of epoch 2 and a resume, exactly once through a sink with
    ``FileSink``'s resume truncation; tumbling ``stats_window`` at
@@ -114,10 +114,25 @@ Phases, each of which raises on any failure:
    variable unset); each ``global`` line carries rows/s, the transport,
    the ledger's ``gsync`` and ``collective_lane`` seconds, the h2d and
    d2h bytes and each process's launches of the bucket, fold and merge
-   kernels.  Where there are several cards, the lock-step flow again
-   with one process a card on NCCL; one card prints a line saying that
-   was not reached;
-13. report — one ``{"kernels": [...]}`` line.
+   kernels.  Then the lock-step data twice more with a recovery store
+   and ``BYTEWAX_TPU_GSYNC_OVERLAP=1`` (the store-composable overlap),
+   one epoch a batch, process 1 crashing inside a send at epoch 4 and
+   the supervisors restarting both processes: exact at depth 1 (the
+   resume replays the store's rounds through the bucket and fold
+   kernels), and all-integer ``int8`` at depth 2 with a baseline every
+   2 rounds (the resume installs a baseline and replays a round
+   through the merge kernel); each exactly once against the oracle,
+   with the time to recover, the gsync rows written, replayed and
+   tombstoned and each restarted run's launches.  Where there are
+   several cards, the lock-step flow again with one process a card on
+   NCCL; one card prints a line saying that was not reached;
+13. kafka  — 2^20 1BRC messages (10,000 stations; the key is the
+   station, the value the ASCII temperature) on 4 partitions of the
+   port's in-process Kafka broker, read by ``KafkaSource(columnar=True)``,
+   decoded with numpy and folded by ``xla.stats_final`` through
+   ``run_main``, against the float64 oracle; its line carries
+   messages/s, the columnar and itemized polls and the launches;
+14. report — one ``{"kernels": [...]}`` line.
 
 Phases 5 and 6 hold their output against a float64 numpy oracle of
 the same semantics: counts, min and max exactly, means within 1e-5 of
@@ -130,8 +145,10 @@ on a sharded run that launched the shard-bucketing kernel no time, or
 a single-device run that launched it at all; phase 12 on a process
 not on ``cuda:0``, an exact run that launched no bucket or no fold
 kernel, a quantized run that launched no merge kernel or folded on the
-host without ``BYTEWAX_TPU_WIRE=pickle``, any demotion, or a child
-exiting non-zero).
+host without ``BYTEWAX_TPU_WIRE=pickle``, any demotion, a child
+exiting non-zero, a store run whose restarted processes launched no
+merge (quantized) or no bucket or fold (exact), or a store holding a
+live ``\x00gsync-`` row after the clean end).
 
 Every result line is JSON and carries the card's name and power
 limit.  The last line is ``{"ok": true, "device": {...}}``.
@@ -2183,10 +2200,13 @@ def phase_anomaly(card: dict, n: int, n_keys: int, times: dict) -> dict:
 #: 1BRC batches of the recovery runs, and the epoch whose seal crashes.
 RECOVERY_BRC_BATCHES = 16
 RECOVERY_BRC_CRASH_EPOCH = 8
-#: ``anomaly_flow`` batches at 2^20 sensors (cut from 4: a synchronous
-#: run of 4 took 89 s on the H100, most of it writing ~663,000 store
-#: rows a close), and the epoch whose seal crashes.
+#: ``anomaly_flow`` batches (cut from 4: a synchronous run of 4 took
+#: 89 s on the H100, most of it writing ~663,000 store rows a close),
+#: its sensors (cut from 2^20: the four runs took 182 s of an 880 s
+#: script on the H100, the store's rows a touched key pacing them), and
+#: the epoch whose seal crashes.
 RECOVERY_ANOMALY_BATCHES = 2
+RECOVERY_ANOMALY_KEYS = 1 << 19
 RECOVERY_ANOMALY_CRASH_EPOCH = 2
 #: Tumbling-window batches, and the batch before which the run aborts.
 RECOVERY_WINDOW_BATCHES = 8
@@ -2524,7 +2544,7 @@ def _recovery_brc(card: dict, root: Path, n: int, n_stations: int, launches: dic
 
 
 def _recovery_anomaly(card: dict, root: Path, n: int, n_keys: int, launches: dict) -> list:
-    """Phase 9.2: ``anomaly_flow`` at 2^20 sensors, synchronous, delta
+    """Phase 9.2: ``anomaly_flow`` at 2^19 sensors, synchronous, delta
     and async, then delta and async with a crash at a seal and a
     resume; every run's scored rows against the oracle, exactly once."""
     import numpy as np
@@ -2746,7 +2766,7 @@ def phase_recovery(card: dict, n: int) -> dict:
         root = Path(tmp)
         _recovery_brc(card, root, n, INGEST_STATIONS, fold)
         _recovery_windows(card, root, n, WINDOW_KEYS, fold)
-        _recovery_anomaly(card, root, n, WIDE_KEYS, scan)
+        _recovery_anomaly(card, root, n, RECOVERY_ANOMALY_KEYS, scan)
     return {"fold": fold, "scan": scan}
 
 
@@ -2829,6 +2849,21 @@ scan_kernel.scan = _first("scan", scan_kernel.scan)
 bucket_kernel.bucket = _first("bucket", bucket_kernel.bucket)
 merge_kernel.merge = _first("merge", merge_kernel.merge)
 
+#: Each supervised restart of this process: when, and each kernel's
+#: launches so far (the launches after the last one are the restarted
+#: run's).
+RESTARTS = []
+_note_restart = flight.note_restart
+
+
+def _restarting(*args, **kwargs):
+    RESTARTS.append({"at": time.time(), "fold": fold_kernel.launches, "scan": scan_kernel.launches,
+                     "bucket": bucket_kernel.launches, "merge": merge_kernel.launches})
+    return _note_restart(*args, **kwargs)
+
+
+flight.note_restart = _restarting
+
 
 def _report():
     demotions = sum(
@@ -2856,6 +2891,7 @@ def _report():
         "first_merge_s": FIRST["merge"] - START if "merge" in FIRST else None,
         "first_batch_s": FIRST["batch"] - START if "batch" in FIRST else None,
         "transport": mesh.world().describe() if mesh.world() is not None else None,
+        "restarts": RESTARTS,
         "counters": {k: v for k, v in flight.RECORDER.counters.items()
                      if k.startswith(("device_transfer_bytes", "gsync_"))},
     }
@@ -2972,7 +3008,10 @@ STATIONS = np.array([f"station_{i:04d}" for i in range(int(os.environ.get("CLUST
 class _BatchPart(StatefulSourcePartition):
     # Partition p of P of the columnar 1BRC batches: batches p, p + P, ...
     # (dictionary-encoded int16 stations and deci-degrees; scaled by
-    # CLUSTER_SCALE, or integers where it is 0).
+    # CLUSTER_SCALE, or integers where it is 0).  With CLUSTER_HOLD_CLOSES
+    # set, one batch an epoch close of this process, and EOF only once it
+    # closed that many epochs (a stalled run still ends after 120 s), so
+    # that an epoch-pinned fault lands mid-run whatever the load.
     def __init__(self, p, parts, at):
         self.ids = np.load(os.path.join(WORK, "gbrc_ids.npy"), mmap_mode="r")
         self.deci = np.load(os.path.join(WORK, "gbrc_deci.npy"), mmap_mode="r")
@@ -2980,9 +3019,30 @@ class _BatchPart(StatefulSourcePartition):
         self.mine = list(range(p, len(self.ids) // self.rows, parts))
         self.scale = float(os.environ["CLUSTER_SCALE"]) or None
         self.at = at
+        self.hold = int(os.environ.get("CLUSTER_HOLD_CLOSES", "0"))
+        self.deadline = time.monotonic() + 120
+        self.seen = None
+        self.awake = None
+
+    def next_awake(self):
+        return self.awake
+
+    def _held(self):
+        if not self.hold or time.monotonic() > self.deadline:
+            return False
+        from datetime import datetime, timedelta, timezone
+
+        closes = flight.RECORDER.counters.get("epoch_close_count", 0)
+        if (self.seen is not None and closes <= self.seen) or (self.at >= len(self.mine) and closes < self.hold):
+            self.awake = datetime.now(timezone.utc) + timedelta(milliseconds=5)
+            return True
+        self.awake, self.seen = None, closes
+        return False
 
     def next_batch(self):
         FIRST.setdefault("batch", time.time())
+        if self._held():
+            return []
         if self.at >= len(self.mine):
             raise StopIteration()
         lo = self.mine[self.at] * self.rows
@@ -4450,6 +4510,182 @@ def _global_run(card: dict, work: Path, data: Path, name: str, procs: int, stati
     return {"out": got, "launches": {k: sum(v) for k, v in launches.items()}, "seconds": seconds}
 
 
+def _live_gsync_rows(db: Path) -> list:
+    """The cluster-wide tier's rows a store still holds live (the
+    latest row of the key is not a tombstone)."""
+    from bytewax_tpu_torch.engine.recovery_store import RecoveryStore
+
+    store = RecoveryStore(db)
+    try:
+        return [key for _step, key, _ser in store.iter_snaps(1 << 40) if key.startswith("\x00gsync-")]
+    finally:
+        store.close()
+
+
+def _global_store_run(card: dict, work: Path, data: Path, name: str, want: dict, scale: float,
+                      **knobs) -> dict:
+    """The 2-process lock-step data through the cluster-wide tier with a
+    recovery store under ``BYTEWAX_TPU_GSYNC_OVERLAP=1``, one epoch a
+    batch; process 1 crashes inside a send at epoch 4 and the
+    supervisors restart both processes, which install the store's
+    baseline (if any) and replay its rounds on the card.  Fails unless
+    the run ends cleanly, exactly once against the oracle, with every
+    process restarted and its restarted run launching the merge
+    (quantized) or the bucket and fold (exact) kernels, and no live
+    gsync row left in the store.  Emits its ``global`` line and returns
+    each kernel's launches."""
+    reports, out = _fresh_dirs(work, name)
+    db = work / f"{name}_db"
+    db.mkdir()
+    env = _cluster_env(data, reports, out, CLUSTER_FLOW="gbrc", CLUSTER_PARTS=2,
+                       CLUSTER_STATIONS=GLOBAL_STATIONS, CLUSTER_BATCH_ROWS=BATCH_ROWS, CLUSTER_SCALE=scale,
+                       CLUSTER_HOLD_CLOSES=GLOBAL_STORE_HOLD, BYTEWAX_TPU_ACCEL=1, BYTEWAX_TPU_DISTRIBUTED=1,
+                       BYTEWAX_TPU_GLOBAL_EXCHANGE_DEBUG=1, BYTEWAX_TPU_GSYNC_OVERLAP=1,
+                       BYTEWAX_TPU_INGEST_TARGET_ROWS=0, BYTEWAX_TPU_FAULTS=GLOBAL_STORE_FAULT,
+                       BYTEWAX_TPU_MAX_RESTARTS=3, BYTEWAX_TPU_RESTART_BACKOFF_S=0.1, **knobs)
+    for knob in ("BYTEWAX_TPU_GSYNC_DEPTH", "BYTEWAX_TPU_GSYNC_QUANT", "BYTEWAX_TPU_WIRE",
+                 "BYTEWAX_TPU_GSYNC_BASELINE_EVERY"):
+        if knob not in knobs:
+            env.pop(knob, None)
+    subprocess.run([sys.executable, "-m", "bytewax_tpu_torch.recovery", str(db), "2"],
+                   env=env, check=True, timeout=120)
+    cmd = [sys.executable, "-m", "bytewax_tpu_torch.testing", f"{work / 'cluster_flows.py'}:flow",
+           "-p", "2", "-r", str(db), "-s", str(GLOBAL_EPOCH_S), "-b", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=work, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True)
+    # Drain stderr on a thread: the children's debug lines must not
+    # fill the pipe while the store is polled here.
+    import threading
+
+    err_parts = []
+    reader = threading.Thread(target=lambda: err_parts.append(proc.stderr.read()))
+    reader.start()
+    recovered = None
+    first_ex = None
+    deadline = time.monotonic() + CLUSTER_TIMEOUT_S
+    try:
+        while proc.poll() is None:
+            if time.monotonic() > deadline:
+                msg = f"{name}: the run did not end in {CLUSTER_TIMEOUT_S} s"
+                raise AssertionError(msg)
+            fronts = _fronts(db, 1)
+            if fronts and first_ex is None:
+                first_ex = min(f[0] for f in fronts)
+            if recovered is None and first_ex is not None and any(
+                ex > first_ex and epoch > resume for ex, epoch, resume in fronts
+            ):
+                recovered = time.time()
+            time.sleep(0.01)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        reader.join()
+    seconds = time.perf_counter() - t0
+    err = "".join(err_parts)
+    if proc.returncode != 0:
+        msg = f"{name}: exit {proc.returncode}\n{err[-3000:]}"
+        raise AssertionError(msg)
+    if "supervised restart" not in err:
+        msg = f"{name}: no supervised restart\n{err[-3000:]}"
+        raise AssertionError(msg)
+    quant = knobs.get("BYTEWAX_TPU_GSYNC_QUANT", "off")
+    reps = sorted(_global_reports(name, reports, 2, err, True, quant, False), key=lambda r: r["proc_id"])
+    after = {}
+    for r in reps:
+        where = f"{name}, process {r['proc_id']} (pid {r['pid']})"
+        if not r["restarts"]:
+            msg = f"{where}: never restarted"
+            raise AssertionError(msg)
+        last = r["restarts"][-1]
+        after[r["proc_id"]] = {k: r[f"{k}_launches"] - last[k] for k in ("bucket", "fold", "merge")}
+        if quant != "off" and after[r["proc_id"]]["merge"] <= 0:
+            msg = f"{where}: the restarted run launched no merge"
+            raise AssertionError(msg)
+        if quant == "off" and (after[r["proc_id"]]["bucket"] <= 0 or after[r["proc_id"]]["fold"] <= 0):
+            msg = f"{where}: the restarted run launched bucket {after[r['proc_id']]['bucket']}, fold " \
+                  f"{after[r['proc_id']]['fold']} times"
+            raise AssertionError(msg)
+    resumed = {}
+    for r in reps:
+        mark = f"global-exchange: proc {r['proc_id']} resumed baseline round "
+        lines = [ln.split(mark, 1)[1] for ln in err.splitlines() if mark in ln]
+        if len(lines) != 1:
+            msg = f"{name}, process {r['proc_id']}: {len(lines)} resume lines"
+            raise AssertionError(msg)
+        base, rounds = lines[0].split(", replayed rounds ", 1)
+        resumed[r["proc_id"]] = {"baseline_round": None if base == "None" else int(base),
+                                 "replayed_rounds": rounds.split(" in ", 1)[0]}
+        if "BYTEWAX_TPU_GSYNC_BASELINE_EVERY" in knobs and base == "None":
+            msg = f"{name}, process {r['proc_id']}: no baseline installed"
+            raise AssertionError(msg)
+        if resumed[r["proc_id"]]["replayed_rounds"] == "[]":
+            msg = f"{name}, process {r['proc_id']}: no round replayed"
+            raise AssertionError(msg)
+    live = _live_gsync_rows(db)
+    if live:
+        msg = f"{name}: the store still holds {len(live)} gsync rows after a clean end: {live[:4]}"
+        raise AssertionError(msg)
+    if recovered is None:
+        msg = f"{name}: process 1 committed no epoch after the restart"
+        raise AssertionError(msg)
+    got = _read_global_out(name, out)
+    worst = _check_global(name, got, want, scale, quant)
+    crashed = min(r["restarts"][0]["at"] for r in reps)
+    rows = GLOBAL_BATCHES * BATCH_ROWS
+
+    def counter(key):
+        return [r["counters"].get(key, 0) for r in reps]
+
+    launches = {key: [r[f"{key}_launches"] for r in reps] for key in ("bucket", "fold", "merge")}
+    _emit(
+        card,
+        "global",
+        run=name,
+        entry="python -m bytewax_tpu_torch.testing -p 2 -r db -s %g -b 0" % GLOBAL_EPOCH_S,
+        tier="cluster-wide exchange, store-composable overlap",
+        processes=2,
+        rows=rows,
+        stations=GLOBAL_STATIONS,
+        values="deci-degrees x 0.1" if scale else "integer deci-degrees",
+        knobs={k: str(v) for k, v in knobs.items()},
+        fault=GLOBAL_STORE_FAULT,
+        transport=reps[0]["transport"],
+        seconds=seconds,
+        rows_per_s=rows / seconds,
+        time_to_recover_s=recovered - crashed,
+        restarts=[len(r["restarts"]) for r in reps],
+        resumed=[resumed[r["proc_id"]] for r in reps],
+        gsync_rows_written=counter("gsync_store_rows"),
+        gsync_rows_tombstoned=counter("gsync_store_tombstones"),
+        gsync_rounds_replayed=counter("gsync_replayed_rounds"),
+        gsync_baselines_installed=counter("gsync_baseline_installs"),
+        gsync_replay_s=counter("gsync_replay_seconds"),
+        exchange_rounds=[_rounds(err, r["proc_id"]) for r in reps],
+        bucket_launches=launches["bucket"],
+        fold_launches=launches["fold"],
+        merge_launches=launches["merge"],
+        launches_after_restart=[after[r["proc_id"]] for r in reps],
+        max_mean_err=worst["mean"],
+        max_min_max_err=worst["min_max"],
+        exactly_once=True,
+        **_child_fields(reps),
+    )
+    return {k: sum(v) for k, v in launches.items()}
+
+
+#: Phase 12's store runs: the fault (process 1 crashes inside a send at
+#: epoch 4, with earlier rounds committed), the closes each process
+#: holds EOF for, and (name, integer values, knobs).
+GLOBAL_STORE_FAULT = "comm.send:crash:4:1:x1"
+GLOBAL_STORE_HOLD = 6
+GLOBAL_STORE_RUNS = (
+    ("global_store_d1", False, {}),
+    ("global_store_d2_int8", True,
+     {"BYTEWAX_TPU_GSYNC_DEPTH": 2, "BYTEWAX_TPU_GSYNC_QUANT": "int8", "BYTEWAX_TPU_GSYNC_BASELINE_EVERY": 2}),
+)
+
 #: Phase 12's runs: (name, processes, wide data, integer values, the
 #: cluster-wide tier, knobs).
 GLOBAL_RUNS = (
@@ -4563,6 +4799,8 @@ def phase_global(card: dict) -> dict:
                               wide_want if is_wide else want, distributed=distributed, **knobs)
             outs[name] = run["out"]
             launches[name] = run["launches"]
+        for name, ints, knobs in GLOBAL_STORE_RUNS:
+            launches[name] = _global_store_run(card, work, narrow, name, want, 0 if ints else 0.1, **knobs)
         same = {
             "global_overlap_d1": _same_floats("global_overlap_d1", outs["global_overlap_d1"],
                                               outs["global_exact"], "the lock-step run"),
@@ -4577,6 +4815,132 @@ def phase_global(card: dict) -> dict:
               integer_runs_identical=["global_ints_exact", "global_ints_int8_device", "global_ints_int8_host"])
         _global_cards(card, work, narrow, want)
     return dict(check, launches=launches)
+
+
+# -- phase 13 ----------------------------------------------------------------
+
+#: Phase 13: 1BRC messages on the in-process broker's partitions.
+KAFKA_MESSAGES = 1 << 20
+KAFKA_PARTITIONS = 4
+KAFKA_STATIONS = 10_000
+KAFKA_BROKER = "inmem://chip-smoke"
+KAFKA_TOPIC = "measurements"
+
+
+def _kafka_messages(n: int, n_stations: int, seed: int):
+    """Produce ``n`` 1BRC messages into the in-process broker (the
+    default partitioner spreads the stations over the partitions);
+    returns the stations, ids and deci-degrees."""
+    import numpy as np
+
+    from bytewax_tpu_torch.connectors.kafka import inmem
+
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, n_stations, size=n)
+    deci = np.clip(np.round(rng.randn(n) * 100 + 120), -999, 999).astype(np.int64)
+    stations = np.array([f"station_{i:05d}" for i in range(n_stations)])
+    keys = [s.encode() for s in stations.tolist()]
+    temps = [f"{q / 10:.1f}".encode() for q in range(-999, 1000)]
+    broker = inmem.broker_for(KAFKA_BROKER)
+    broker.create_topic(KAFKA_TOPIC, partitions=KAFKA_PARTITIONS)
+    for i, d in zip(ids.tolist(), deci.tolist()):
+        broker.produce(KAFKA_TOPIC, value=temps[d + 999], key=keys[i])
+    return stations, ids, deci
+
+
+def phase_kafka(card: dict) -> int:
+    """Phase 13: the Kafka connector's columnar source over the port's
+    in-process broker into ``xla.stats_final`` on the card; returns the
+    fold launches of the run."""
+    import numpy as np
+
+    import bytewax_tpu_torch.operators as op
+    from bytewax_tpu_torch import xla
+    from bytewax_tpu_torch.connectors.kafka import KafkaSource, inmem
+    from bytewax_tpu_torch.dataflow import Dataflow
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.testing import TestingSink
+
+    inmem.reset()
+    t0 = time.perf_counter()
+    stations, ids, deci = _kafka_messages(KAFKA_MESSAGES, KAFKA_STATIONS, seed=13)
+    produce_s = time.perf_counter() - t0
+    want = _stats_oracle(stations, ids, deci)
+    polls = {"columnar": 0, "itemized": 0}
+
+    class _Counted(KafkaSource):
+        # Counts the partitions' polls that brought rows, by form.
+        def build_part(self, step_id, for_part, resume_state):
+            part = super().build_part(step_id, for_part, resume_state)
+            nxt = part.next_batch
+
+            def counted():
+                out = nxt()
+                if isinstance(out, ArrayBatch):
+                    polls["columnar"] += 1
+                elif out:
+                    polls["itemized"] += 1
+                return out
+
+            part.next_batch = counted
+            return part
+
+    def decode(batch):
+        if not isinstance(batch, ArrayBatch):  # an itemized poll
+            return [(m.key.decode(), float(np.float32(m.value))) for m in batch]
+        return ArrayBatch({"key": batch.cols["key"].astype("U"), "value": batch.cols["value"].astype(np.float32)})
+
+    out = []
+    states, _timers, undo = _recording_states()
+    try:
+        # The broker stands in for ``confluent_kafka`` from the source's
+        # construction on.
+        with inmem.installed():
+            flow = Dataflow("kafka_brc")
+            s = op.input("inp", flow, _Counted([KAFKA_BROKER], [KAFKA_TOPIC], tail=False, columnar=True))
+            s = op.flat_map_batch("decode", s, decode)
+            s = xla.stats_final("stats", s)
+            op.output("out", s, TestingSink(out))
+            run = _run_flow(flow)
+    finally:
+        undo()
+        inmem.reset()
+    _require_launches(run["launches"], "Kafka 1BRC")
+    if len(states) != 1 or states[0].device.type != DEV:
+        msg = f"Kafka 1BRC: device state not on cuda: {[s.device for s in states]}"
+        raise AssertionError(msg)
+    got = dict(out)
+    if set(got) != set(want):
+        msg = f"Kafka 1BRC: {len(got)} stations out, {len(want)} expected"
+        raise AssertionError(msg)
+    worst = 0.0
+    for station, (mn, mean, mx, count, mean_abs) in want.items():
+        gmn, gmean, gmx, gcount = got[station]
+        if (gmn, gmx, gcount) != (mn, mx, count):
+            msg = f"Kafka 1BRC, {station}: {got[station]} != {want[station]}"
+            raise AssertionError(msg)
+        worst = max(worst, _check_mean(gmean, mean, mean_abs, f"Kafka 1BRC, {station}"))
+    _emit(
+        card,
+        "kafka",
+        flow="KafkaSource(columnar) -> flat_map_batch (numpy decode) -> stats_final",
+        broker="in-process (bytewax_tpu_torch.connectors.kafka.inmem)",
+        messages=KAFKA_MESSAGES,
+        partitions=KAFKA_PARTITIONS,
+        stations=len(want),
+        produce_s=produce_s,
+        seconds=run["seconds"],
+        messages_per_s=KAFKA_MESSAGES / run["seconds"],
+        columnar_polls=polls["columnar"],
+        itemized_polls=polls["itemized"],
+        fold_launches=run["launches"],
+        table_capacity=states[0].capacity,
+        max_mean_rel_err=worst,
+        ingest_rows_columnar=run["counters"].get("ingest_rows_columnar", 0),
+        h2d_bytes=run["counters"].get("device_transfer_bytes_h2d", 0),
+        phase_seconds=run["phase_seconds"],
+    )
+    return run["launches"]
 
 
 def main() -> int:
@@ -4656,6 +5020,7 @@ def main() -> int:
         launches[path] = counts["fold"]
         bucket_launches[path] = counts["bucket"]
         merge_launches[path] = counts["merge"]
+    launches["kafka"] = phase_kafka(card)
 
     times = shapes["brc_413"]
     scan_times = scan["times"]["welford"]

@@ -191,22 +191,43 @@ def test_columnar_windowed_sum_matches_reference(tmp_path):
 
 SEQ_FLOW = """
 import os
+import time
+from datetime import datetime, timedelta, timezone
 
 import PKG.operators as op
 from PKG import xla
 from PKG.dataflow import Dataflow
 from PKG.connectors.files import FileSink
+from PKG.engine.flight import RECORDER
 from PKG.inputs import FixedPartitionedSource, StatefulSourcePartition
 
 
 class _Part(StatefulSourcePartition):
+    # One batch an epoch close of this process, and EOF held until it
+    # closed XSTORE_HOLD_CLOSES epochs (polled through next_awake; a
+    # stalled run still ends after 60 s): an epoch-pinned crash always
+    # lands before EOF, whatever the load.
     def __init__(self, name, resume):
         self._name = name
         self._i = resume or 0
+        self._hold = int(os.environ.get("XSTORE_HOLD_CLOSES", "0"))
+        self._deadline = time.monotonic() + 60
+        self._seen = None
+        self._awake = None
+
+    def next_awake(self):
+        return self._awake
 
     def next_batch(self):
+        closes = RECORDER.counters.get("epoch_close_count", 0)
+        if time.monotonic() < self._deadline and (
+            (self._seen is not None and closes <= self._seen) or (self._i >= 16 and closes < self._hold)
+        ):
+            self._awake = datetime.now(timezone.utc) + timedelta(milliseconds=5)
+            return []
         if self._i >= 16:
             raise StopIteration()
+        self._awake, self._seen = None, closes
         self._i += 1
         return [(f"{self._name}-{(self._i + j) % 4}", float(self._i + j)) for j in range(3)]
 
@@ -250,8 +271,9 @@ def _seq_oracle(tier):
 
 @pytest.mark.parametrize("tier", ["host", "device"])
 def test_store_of_a_crashed_reference_cluster_resumes_in_the_port(tmp_path, tier):
-    """A 2-process JAX cluster with a store (one epoch a batch) loses
-    process 1 to an injected crash inside a send at epoch 4; a
+    """A 2-process JAX cluster with a store (one batch an epoch close,
+    EOF held past epoch 6) loses process 1 to an injected crash inside a
+    send at epoch 4; a
     2-process port cluster resumes the store to the end.  The output
     (``FileSink`` cuts back to its snapshot) equals the uninterrupted
     run's, every row once."""
@@ -261,8 +283,14 @@ def test_store_of_a_crashed_reference_cluster_resumes_in_the_port(tmp_path, tier
         # One epoch a batch: coalescing would swallow the source in one
         # poll, and the epoch-numbered crash would never fire.
         "BYTEWAX_TPU_INGEST_TARGET_ROWS": "0",
+        # Wait for real progress: EOF only after 6 closes, past the
+        # crash at epoch 4.
+        "XSTORE_HOLD_CLOSES": "6",
     }
-    args = ("-s", "0", "-b", "0")
+    # Epochs close every 50 ms whether or not a poll brought rows (at
+    # an interval of 0 an empty poll closes none, and the source waits
+    # for closes).
+    args = ("-s", "0.05", "-b", "0")
     db = tmp_path / "db"
     _init_db("bytewax_tpu", db, 2)
     out = tmp_path / "xstore_out.txt"  # one sink file: its snapshot is an offset in it

@@ -13,6 +13,7 @@ from bytewax_tpu_torch.utils import force_platform
 MODULES = [
     "bytewax_tpu_torch.connectors.demo",
     "bytewax_tpu_torch.connectors.files",
+    "bytewax_tpu_torch.connectors.kafka",
     "bytewax_tpu_torch.connectors.stdio",
     "bytewax_tpu_torch.dataflow",
     "bytewax_tpu_torch.engine.backoff",

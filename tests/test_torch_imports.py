@@ -60,9 +60,28 @@ def test_no_jax_or_reference_imports(path):
 
 
 #: Flows that a subprocess runs through the port, one per path: the
-#: keyed aggregation, file ingest into wordcount, a windowed fold, and
-#: the anomaly detector in both forms (scan, and inference).
+#: keyed aggregation, file ingest into wordcount, a windowed fold, the
+#: anomaly detector in both forms (scan, and inference), and the Kafka
+#: connector's columnar source over its in-process broker.
 FLOWS = {
+    "kafka": """
+import numpy as np
+from bytewax_tpu_torch.connectors.kafka import KafkaSource, inmem, operators, serde
+from bytewax_tpu_torch.engine.arrays import ArrayBatch
+broker = inmem.broker_for("inmem://imports")
+broker.create_topic("t", partitions=2)
+for key, value in ((b"a", b"1.5"), (b"b", b"2.0"), (b"a", b"-1.0")):
+    broker.produce("t", key=key, value=value)
+with inmem.installed():
+    s = op.input("inp", flow, KafkaSource(["inmem://imports"], ["t"], tail=False, columnar=True))
+    s = op.flat_map_batch(
+        "decode", s, lambda b: ArrayBatch({"key": b.cols["key"].astype("U"), "value": b.cols["value"].astype(np.float32)})
+    )
+    s = xla.stats_final("stats", s)
+    op.output("out", s, TestingSink(out))
+    run_main(flow)
+assert sorted(out) == [("a", (-1.0, 0.25, 1.5, 2)), ("b", (2.0, 2.0, 2.0, 1))], out
+""",
     "anomaly": """
 from bytewax_tpu_torch.models.anomaly import anomaly_flow, anomaly_infer_flow
 items = [("s", 1.0), ("s", 2.0), ("s", 9.0)]
@@ -233,14 +252,17 @@ def test_distributed_setting_in_one_process_runs_like_the_reference(monkeypatch)
 
 
 def test_store_with_overlap_refuses_the_cluster_tier(monkeypatch):
-    """Where the JAX package takes its store-composable overlap (a
-    recovery store, ``BYTEWAX_TPU_GSYNC_OVERLAP=1`` and an eligible
-    distributed cluster), the port refuses, naming ROADMAP A9c; it never
-    falls through to a per-process tier, which would deadlock the peers
-    that built the cluster tier.  Not eligible, it falls through as the
-    JAX package does."""
+    """The name dates from the port's refusal of the store-composable
+    overlap (ROADMAP A9c, ported since).  Where the JAX package takes
+    it (a recovery store, ``BYTEWAX_TPU_GSYNC_OVERLAP=1`` and an
+    eligible distributed cluster), the port builds the cluster-wide
+    tier too; not eligible, or with the overlap off, both fall through
+    to the same per-process tier."""
+    import jax
     import torch.distributed as dist
 
+    from bytewax_tpu.engine import sharded_state as ref
+    from bytewax_tpu.parallel import mesh as ref_mesh
     from bytewax_tpu_torch.engine import sharded_state as port
     from bytewax_tpu_torch.parallel import mesh
 
@@ -249,16 +271,28 @@ def test_store_with_overlap_refuses_the_cluster_tier(monkeypatch):
         store = object()
         proc_count = 2
 
+    def built(mod):
+        return type(mod.make_agg_state("sum", driver=_Cluster())).__name__
+
+    class _Tier:
+        def __init__(self, kind, driver):
+            self.kind, self.driver = kind, driver
+
     monkeypatch.setenv("BYTEWAX_TPU_DISTRIBUTED", "1")
     monkeypatch.setenv("BYTEWAX_TPU_GSYNC_OVERLAP", "1")
     monkeypatch.setenv("BYTEWAX_TPU_SHARD", "0")
-    assert isinstance(port.make_agg_state("sum", driver=_Cluster()), DeviceAggState)
+    assert built(port) == built(ref) == "DeviceAggState"
     monkeypatch.setattr(mesh, "distributed_is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="A9c"):
-        port.make_agg_state("sum", driver=_Cluster())
+    monkeypatch.setattr(ref_mesh, "distributed_is_initialized", lambda: True)
+    monkeypatch.setattr(jax, "process_count", lambda: 2)
+    for mod in (port, ref):
+        monkeypatch.setattr(mod, "GlobalAggState", type("GlobalAggState", (_Tier,), {}))
+    assert built(port) == built(ref) == "GlobalAggState"
+    state = port.make_agg_state("sum", driver=_Cluster())
+    assert state.kind == "sum" and state.driver.store is not None
     monkeypatch.setenv("BYTEWAX_TPU_GSYNC_OVERLAP", "0")
-    assert isinstance(port.make_agg_state("sum", driver=_Cluster()), DeviceAggState)
+    assert built(port) == built(ref) == "DeviceAggState"
 
 
 def test_shard_setting_picks_the_sharded_tiers(monkeypatch):

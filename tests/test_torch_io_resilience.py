@@ -90,3 +90,35 @@ def test_csv_dlq_poison_row_columnar(tmp_path, monkeypatch):
     assert rec["step_id"] == "csv_dlq_col_df.inp"
     assert "NUL" in rec["error"]
     assert rec["payload"] == "bad\x00row,9\n"
+
+
+@pytest.mark.parametrize("columnar", [False, True], ids=["itemized", "columnar"])
+def test_csv_dlq_row_ending_in_nul(tmp_path, monkeypatch, columnar):
+    """A NUL that ends a line is dead-lettered alike in both modes: the
+    columnar reader's fixed-width line arrays would drop it, so in
+    dead-letter mode a chunk holding a NUL splits into exact lines and
+    takes the csv fallback, which dead-letters the row with its raw
+    line as the itemized reader does."""
+    path = tmp_path / "rows.csv"
+    path.write_bytes(b"name,score\na,1\nbad\x00\nb,2\n")
+    monkeypatch.setenv("BYTEWAX_TPU_DLQ_DIR", str(tmp_path / "dlq"))
+    from bytewax_tpu_torch.connectors.files import CSVSource
+
+    out = []
+    flow = Dataflow("csv_dlq_tail_df")
+    s = op.input("inp", flow, CSVSource(str(path), columnar=columnar, on_error="dlq"))
+    op.output("out", s, TestingSink(out))
+    run_main(flow, epoch_interval=ZERO_TD)
+    assert out == [
+        {"name": "a", "score": "1"},
+        {"name": "b", "score": "2"},
+    ]
+    rows = [
+        json.loads(line)
+        for line in (tmp_path / "dlq" / "dlq-p00.jsonl").read_text().splitlines()
+    ]
+    assert len(rows) == 1
+    rec = rows[0]
+    assert rec["step_id"] == "csv_dlq_tail_df.inp"
+    assert rec["error"] == "Error: line contains NUL"
+    assert rec["payload"] == "bad\x00\n"
