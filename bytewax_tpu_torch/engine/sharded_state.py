@@ -1182,13 +1182,6 @@ class GlobalAggState:
             )
             sys.stderr.flush()
 
-    def _launch(self, task) -> None:
-        """Run a sealed round inline (lock-step) or on the lane."""
-        if self._lane is None:
-            task()
-        else:
-            self._lane.push(task, _discard_result)
-
     def flush(self) -> None:
         """One collective exchange-and-fold round.  Every process calls
         this the same number of times in the same global order (epoch
@@ -1237,7 +1230,16 @@ class GlobalAggState:
             peer_frames = [replies[pid][4] for pid in sorted(replies)]
             n_frames = sum(len(f or ()) for f in peer_frames)
             sealed = self._seal_merge(peer_frames)
-            self._launch(lambda: self._apply_merge(sealed))
+
+            def merge_task():
+                self._apply_merge(sealed)
+
+            # Inline (lock-step) or on the lane; the push site names the
+            # task itself, so the analyzer traces it as a lane root.
+            if self._lane is None:
+                merge_task()
+            else:
+                self._lane.push(merge_task, _discard_result)
             where = "host" if sealed["device"] is False else "device"
             self._note_flush(
                 n_local,
@@ -1311,9 +1313,14 @@ class GlobalAggState:
 
         _flight.note_transfer("h2d", kids_p.nbytes + vals_p.nbytes + valid_p.nbytes)
         step = self._step_for(chunk_pd, capacity)
-        self._launch(
-            lambda: self._exchange_chunks(step, kids_p, vals_p, valid_p, chunk_rows, chunk_pd, n_steps)
-        )
+
+        def exchange_task():
+            self._exchange_chunks(step, kids_p, vals_p, valid_p, chunk_rows, chunk_pd, n_steps)
+
+        if self._lane is None:
+            exchange_task()
+        else:
+            self._lane.push(exchange_task, _discard_result)
         self._note_flush(n_local, total_rows, n_steps, f"capacity {capacity}")
         self._stash_round(
             lambda: {
@@ -1326,6 +1333,7 @@ class GlobalAggState:
                 "capacity": capacity,
                 "n_steps": n_steps,
                 "dtype": np.dtype(_NP_OF[self.dtype]).name,
+                "layout": self._layout_fields(),
             }
         )
 
@@ -1610,6 +1618,38 @@ class GlobalAggState:
             f"{self.local_devs} a process"
         )
 
+    def _layout_fields(self) -> Dict[str, int]:
+        """What an exact round row's ``kids`` and chunk layout depend
+        on: a kid is ``slot * n_shards + shard``, and each process
+        buckets its chunks over its own shards.  The JAX package reads
+        round rows by key and passes over this one."""
+        return {
+            "procs": self.driver.proc_count,
+            "shards": self.n_shards,
+            "cap": self.cap_per_shard,
+            "local_devs": self.local_devs,
+        }
+
+    def _check_round_layout(self, payload: Dict[str, Any]) -> None:
+        """Refuse an exact round row sealed by a cluster of another
+        layout (its kids would fold into other keys' slots here).  A
+        row with no layout, as the JAX package writes it, replays as
+        before."""
+        theirs = payload.get("layout")
+        if payload["fmt"] != "exact" or theirs is None or theirs == self._layout_fields():
+            return
+        msg = (
+            "the global-exchange tier cannot replay the store's round "
+            f"{payload['round']}: it was laid out for {theirs['shards']} "
+            f"shard(s) of {theirs['cap']} slots, {theirs['local_devs']} a "
+            f"process, over {theirs['procs']} process(es), this cluster "
+            f"has {self._layout()} over {self.driver.proc_count} "
+            "process(es); resume with the device count a process the "
+            "store was written with, or run with "
+            "BYTEWAX_TPU_GLOBAL_EXCHANGE=0"
+        )
+        raise RuntimeError(msg)
+
     def _capture_baseline(self) -> Dict[str, Any]:
         """The full merged aggregate (the caller fenced the lane) in the
         JAX package's host format, so that a baseline written by either
@@ -1750,6 +1790,9 @@ class GlobalAggState:
                     baseline = payload
             else:
                 rounds.append(payload)
+        # Every row is checked before anything installs.
+        for payload in rounds:
+            self._check_round_layout(payload)
         base_no = 0
         if baseline is not None:
             self._install_baseline(baseline)

@@ -220,6 +220,7 @@ def generic_scan_body(kind: ScanKind) -> Callable:
         carry = tuple(fields[nm][idx] for nm in names)
         pre = kind.merge(carry, excl)
         post = kind.merge(carry, incl)
+        # bytewax: allow[BTX-THREAD] — ScanKind.emit computes the scan's per-row output columns and sends nothing downstream; only its name matches the main-thread emit surface
         outs = kind.emit(pre, post, values)
         dest = torch.where(_seg_end(slots), idx, capacity - 1)
         for nm, p in zip(names, post):

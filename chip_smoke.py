@@ -4,6 +4,10 @@ check it.
 
 Phases, each of which raises on any failure:
 
+0. analysis — ``python -m bytewax_tpu_torch.analysis --json --timings``
+   over this checkout (the engine-contract analyzer, pure AST); its
+   line carries the rules run, the findings and the seconds, and any
+   finding fails the run;
 1. build   — compile every kernel of the main path from the sources in
    this checkout (``nvcc``, ``sm_90a``);
 2. kernel  — hold the segment-fold kernel against its plain PyTorch
@@ -227,6 +231,52 @@ def _card() -> dict:
     ).stdout.strip().splitlines()[0]
     name, _, limit = out.partition(",")
     return {"line": out, "name": name.strip(), "power_limit": limit.strip()}
+
+
+def phase_analysis(card: dict) -> bool:
+    """Run the port's contract analyzer over this checkout, as a user
+    would, with no baseline; return whether it passed: exit 0 and no
+    finding (each finding is printed to stderr)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [
+            sys.executable,
+            "-m",
+            "bytewax_tpu_torch.analysis",
+            "--json",
+            "--timings",
+            "--no-baseline",
+        ],
+        capture_output=True,
+        text=True,
+        cwd=HERE,
+        env={**os.environ, "PYTHONPATH": str(HERE)},
+        timeout=300,
+    )
+    seconds = time.perf_counter() - t0
+    findings = [json.loads(ln) for ln in res.stdout.splitlines() if ln.startswith("{")]
+    timings = next(
+        (json.loads(ln)["timings_s"] for ln in res.stderr.splitlines() if ln.startswith('{"timings_s"')),
+        {},
+    )
+    rules = sorted(r for r in timings if r.startswith("BTX-"))
+    for f in findings:
+        print(f"{f['path']}:{f['line']} {f['rule']} {f['message']}", file=sys.stderr)
+    if res.returncode not in (0, 1) or len(rules) != 11:
+        print(res.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError(f"the analyzer failed (exit {res.returncode}, {len(rules)} rule(s) timed)")
+    _emit(
+        card,
+        "analysis",
+        rules=len(rules),
+        findings=len(findings),
+        seconds=seconds,
+        rule_seconds=sum(timings.values()),
+        exit_code=res.returncode,
+    )
+    if res.returncode != 0 and not findings:
+        print(res.stdout[-4000:] + res.stderr[-4000:], file=sys.stderr)
+    return res.returncode == 0 and not findings
 
 
 def _emit(card: dict, phase: str, **fields) -> None:
@@ -4959,6 +5009,9 @@ def main() -> int:
         return 1
     os.environ.pop("BYTEWAX_TPU_PLATFORM", None)  # the card, never the CPU
     card = _card()
+    if not phase_analysis(card):
+        print("the port's tree breaks an engine contract (above)", file=sys.stderr)
+        return 1
 
     from concurrent.futures import ThreadPoolExecutor
 

@@ -228,11 +228,18 @@ def _resumed(stderr, proc):
 
 
 def _live_gsync_rows(db):
-    from bytewax_tpu_torch.engine.recovery_store import RecoveryStore
+    return list(_live_gsync_payloads(db))
+
+
+def _live_gsync_payloads(db):
+    """``{key: payload}`` of the store's live gsync rows."""
+    from bytewax_tpu_torch.engine.recovery_store import RecoveryStore, loads
 
     store = RecoveryStore(db)
     try:
-        return [key for _step, key, _ser in store.iter_snaps(1 << 40) if key.startswith("\x00gsync-")]
+        return {
+            key: loads(ser) for _step, key, ser in store.iter_snaps(1 << 40) if key.startswith("\x00gsync-")
+        }
     finally:
         store.close()
 
@@ -286,6 +293,11 @@ def test_crashed_cluster_store_resumes_across_packages(tmp_path, writer, reader,
     res = _run(writer, tmp_path, "write", db, out, {**CRASH, **extra})
     assert res.returncode != 0, "the writing cluster was meant to crash"
     assert "injected fault at 'comm.send'" in res.stderr, res.stderr[-3000:]
+    if writer == "bytewax_tpu_torch" and mode == "exact":
+        # The JAX package reads the port's exact round rows, which carry
+        # a layout field it does not know.
+        rounds = [p for k, p in _live_gsync_payloads(db).items() if k.startswith("\x00gsync-round")]
+        assert rounds and all("layout" in p for p in rounds), rounds
     res = _run(reader, tmp_path, "read", db, out, extra)
     assert res.returncode == 0, res.stderr[-3000:]
     _check_oracle(out)
@@ -375,6 +387,52 @@ def test_port_refuses_a_baseline_of_another_shard_count():
     ref = _bare(Ref)
     ref._install_baseline(base)
     assert ref._dev_fields["count"].shape == (4 * 4096,) != (ref.n_shards * ref.cap_per_shard,)
+
+
+def _exact_round(layout, round_no=3):
+    row = {
+        "fmt": "exact",
+        "round": round_no,
+        "kids": np.zeros(1, dtype=np.int32),
+        "vals": np.ones(1, dtype=np.float32),
+        "new": ["k1"],
+        "chunk_pd": 16,
+        "capacity": 16,
+        "n_steps": 1,
+        "dtype": "float32",
+    }
+    if layout is not None:
+        row["layout"] = layout
+    return row
+
+
+def test_port_refuses_an_exact_round_of_another_layout():
+    """An exact round row sealed by a cluster of 2 devices a process
+    does not replay on 1 device a process: the port raises naming both
+    layouts before it installs anything, the baseline resumed with it
+    included.  Rows of this layout, and rows with no layout as the JAX
+    package writes them, pass the check."""
+    from bytewax_tpu_torch.engine.sharded_state import GlobalAggState as Port
+
+    port = _bare(Port)
+    two_a_proc = _bare(Port, local_devs=2)._layout_fields()
+    assert two_a_proc == {"procs": 2, "shards": 4, "cap": Port.CAP_PER_SHARD, "local_devs": 2}
+    port._resume_rows = [
+        (port._base_key(), _quant_baseline(2)),
+        (port._round_key(3), _exact_round(two_a_proc)),
+    ]
+    port._base_written = False
+    with pytest.raises(
+        RuntimeError,
+        match=r"round 3: it was laid out for 4 shard\(s\) of 4096 slots, 2 a process, over 2 .* "
+        r"2 shard\(s\) of 4096 slots, 1 a process over 2",
+    ):
+        port._maybe_replay_resume()
+    assert getattr(port, "key_to_kid", None) is None
+    assert getattr(port, "_dev_fields", None) is None
+    assert port._base_written is False
+    for layout in (port._layout_fields(), None):
+        port._check_round_layout(_exact_round(layout))
 
 
 def test_fault_unwind_runs_sealed_rounds_out():
