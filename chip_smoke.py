@@ -136,7 +136,24 @@ Phases, each of which raises on any failure:
    decoded with numpy and folded by ``xla.stats_final`` through
    ``run_main``, against the float64 oracle; its line carries
    messages/s, the columnar and itemized polls and the launches;
-14. report — one ``{"kernels": [...]}`` line.
+14. operators — the public operators that lower to the fold kernel,
+   over phase 6's data at full width (10,000 stations, an event-minute
+   a 2^20-row dictionary-encoded batch, 1% late): ``fold_window`` with
+   ``xla.MEAN`` over tumbling windows (8 batches), ``fold_window`` with
+   ``xla.SUM`` and ``operator.add`` over sliding 10-minute windows (2),
+   ``reduce_window`` with ``xla.MIN`` and ``xla.MAX`` (4 each),
+   ``mean_window`` over 60 s sessions (4), and ``reduce_final`` with
+   ``xla.MIN`` and ``xla.MAX`` and no window (8 each), each line with
+   rows/s, its p99 window-close latency and its launches; then the
+   fall-backs the reference defines, over 2^16 rows of the tumbling
+   data: a plain Python folder, itemized rows the promotion cannot
+   read, and a session fold with its own merger, each launching the
+   kernel no time and equal to the lowered run on the same rows (and
+   ``(station, TsValue)`` rows, which promote onto the card); and
+   ``join``, ``join_window`` and ``collect_window`` over 2^16 keyed
+   rows on the card's host against a Python oracle.  The phase fails
+   past 90 s;
+15. report — one ``{"kernels": [...]}`` line.
 
 Phases 5 and 6 hold their output against a float64 numpy oracle of
 the same semantics: counts, min and max exactly, means within 1e-5 of
@@ -152,7 +169,9 @@ kernel, a quantized run that launched no merge kernel or folded on the
 host without ``BYTEWAX_TPU_WIRE=pickle``, any demotion, a child
 exiting non-zero, a store run whose restarted processes launched no
 merge (quantized) or no bucket or fold (exact), or a store holding a
-live ``\x00gsync-`` row after the clean end).
+live ``\x00gsync-`` row after the clean end; phase 14 on a lowered
+run that launched no fold, left ``cuda`` or was demoted, and on a
+fall-back or host run that folded on the card at all).
 
 Every result line is JSON and carries the card's name and power
 limit.  The last line is ``{"ok": true, "device": {...}}``.
@@ -871,8 +890,9 @@ def _run_flow(flow, entry=None, expect=(), **kwargs) -> dict:
 def _check_mean(got: float, want: float, scale: float, where: str) -> float:
     """A float32 mean against the float64 oracle's, relative to the
     mean absolute value of the rows (the scale of a float32 sum's
-    error; the mean itself where the values share one sign)."""
-    err = abs(got - want) / scale
+    error; the mean itself where the values share one sign).  Rows
+    that are all 0 must give exactly 0."""
+    err = abs(got - want) / scale if scale else (0.0 if got == want else float("inf"))
     if not err <= MEAN_RTOL:
         msg = f"{where}: mean {got} vs {want} (error {err} of the mean |value|)"
         raise AssertionError(msg)
@@ -1330,7 +1350,8 @@ def _late_oracle(ids, ts, wait_us: int):
     earlier rows (a plain loop per station, in arrival order)."""
     import numpy as np
 
-    order = np.argsort(ids, kind="stable")
+    # A stable sort of int16 ids is a radix sort.
+    order = np.argsort(ids.astype(np.int16) if ids.max() < 1 << 15 else ids, kind="stable")
     k_sorted = ids[order]
     t_sorted = ts[order]
     starts = np.flatnonzero(np.r_[True, k_sorted[1:] != k_sorted[:-1]])
@@ -1365,6 +1386,32 @@ def _minute_partials(ids, ts, vals, n_keys: int):
     return m0, count, total, abs_total, mn.reshape(n_keys, n_min), mx.reshape(n_keys, n_min)
 
 
+def _sessions(ids, ts, vals):
+    """``{(station id, open µs, close µs): (count, sum, sum of |value|)}``
+    of 60 s sessions over the rows (a gap above a minute opens a new
+    one)."""
+    import numpy as np
+
+    order = np.lexsort((ts, ids))
+    k, t, v = ids[order], ts[order], vals[order]
+    new = np.r_[True, (k[1:] != k[:-1]) | ((t[1:] - t[:-1]) > _MINUTE_US)]
+    starts = np.flatnonzero(new)
+    ends = np.r_[starts[1:], len(t)] - 1
+    sums = np.add.reduceat(v, starts) if len(v) else v
+    abs_sums = np.add.reduceat(np.abs(v), starts) if len(v) else v
+    return {
+        (key, lo, hi): (c, total, abs_total)
+        for key, lo, hi, c, total, abs_total in zip(
+            k[starts].tolist(),
+            t[starts].tolist(),
+            t[ends].tolist(),
+            (ends - starts + 1).tolist(),
+            sums.tolist(),
+            abs_sums.tolist(),
+        )
+    }
+
+
 def _window_oracle(name, ids, ts, vals, n_keys: int):
     """``{(station id, window id): (min, mean, max, count, mean
     |value|)}`` of the on-time rows (tumbling: the minute; sliding: minutes ``wid`` to
@@ -1373,19 +1420,8 @@ def _window_oracle(name, ids, ts, vals, n_keys: int):
     import numpy as np
 
     if name == "session":
-        order = np.lexsort((ts, ids))
-        k, t = ids[order], ts[order]
-        new = np.r_[True, (k[1:] != k[:-1]) | ((t[1:] - t[:-1]) > _MINUTE_US)]
-        starts = np.flatnonzero(new)
-        ends = np.r_[starts[1:], len(t)] - 1
-        return sorted(
-            zip(
-                k[starts].tolist(),
-                t[starts].tolist(),
-                t[ends].tolist(),
-                (ends - starts + 1).tolist(),
-            )
-        )
+        cells = _sessions(ids, ts, vals)
+        return sorted((key, lo, hi, c) for (key, lo, hi), (c, _s, _a) in cells.items())
     m0, count, total, abs_total, mn, mx = _minute_partials(ids, ts, vals, n_keys)
     span = 1 if name == "tumbling" else 10
     n_min = count.shape[1]
@@ -1408,6 +1444,81 @@ def _window_oracle(name, ids, ts, vals, n_keys: int):
     return out
 
 
+def _timed_source(batches):
+    """A source handing ``batches`` out in turn on worker 0; returns
+    it and the list of wall times at which it handed out each batch."""
+    from bytewax_tpu_torch.inputs import DynamicSource, StatelessSourcePartition
+
+    emitted = []
+
+    class _Part(StatelessSourcePartition):
+        def __init__(self, mine: bool):
+            self._i = 0 if mine else len(batches)
+
+        def next_batch(self):
+            if self._i >= len(batches):
+                raise StopIteration()
+            batch = batches[self._i]
+            self._i += 1
+            emitted.append(time.perf_counter())
+            return batch
+
+    class _Source(DynamicSource):
+        def build(self, step_id, worker_index, worker_count):
+            return _Part(worker_index == 0)
+
+    return _Source(), emitted
+
+
+def _timed_sink():
+    """A sink keeping ``(wall time, item)`` for each item it takes;
+    returns it and that list."""
+    from bytewax_tpu_torch.outputs import DynamicSink, StatelessSinkPartition
+
+    rows = []
+
+    class _Part(StatelessSinkPartition):
+        def write_batch(self, items):
+            now = time.perf_counter()
+            rows.extend((now, it) for it in items)
+
+    class _Sink(DynamicSink):
+        def build(self, step_id, worker_index, worker_count):
+            return _Part()
+
+    return _Sink(), rows
+
+
+def _close_latencies(name, metas, ids_b, ts_b, emitted, n_keys: int, align) -> list:
+    """Sorted window-close latencies (s) of a windowed run: a close is
+    due once its station's watermark (max event time - wait) passes
+    the window's end (sessions: the end plus the 60 s gap).  The batch
+    that first carries the station there triggered it; a latency runs
+    from the source handing that batch out to the close's metadata
+    event at the sink.  Closes due only at EOF, and those triggered by
+    the first batch (allocator and kernel warm-up), are left out."""
+    from datetime import timedelta
+
+    import numpy as np
+
+    n_batches = len(ids_b)
+    keymax = np.full((n_batches, n_keys), np.iinfo(np.int64).min, dtype=np.int64)
+    for b, (i_b, t_b) in enumerate(zip(ids_b, ts_b)):
+        np.maximum.at(keymax[b], i_b, t_b)
+    keymax = np.maximum.accumulate(keymax, axis=0) - WINDOW_WAIT_S * 1_000_000
+    lats = []
+    for wall, (k, (_wid, meta)) in metas:
+        col = keymax[:, int(k[8:])]
+        due = (meta.close_time - align) // timedelta(microseconds=1) + _T0_US
+        if name == "session":
+            b = int(np.searchsorted(col, due + _MINUTE_US, side="right"))
+        else:
+            b = int(np.searchsorted(col, due, side="left"))
+        if 1 <= b < n_batches:
+            lats.append(wall - emitted[b])
+    return sorted(lats)
+
+
 def _window_case(card: dict, name: str, n_batches: int, n: int, n_keys: int, seed: int,
                  phase: str = "windows") -> dict:
     """One windowed flow through ``run_main``, checked against its
@@ -1421,8 +1532,6 @@ def _window_case(card: dict, name: str, n_batches: int, n: int, n_keys: int, see
     import bytewax_tpu_torch.operators.windowing as win
     from bytewax_tpu_torch.dataflow import Dataflow
     from bytewax_tpu_torch.engine.arrays import ArrayBatch
-    from bytewax_tpu_torch.inputs import DynamicSource, StatelessSourcePartition
-    from bytewax_tpu_torch.outputs import DynamicSink, StatelessSinkPartition
     from bytewax_tpu_torch.testing import TestingSink
     from bytewax_tpu_torch.xla import column_ts
 
@@ -1432,44 +1541,14 @@ def _window_case(card: dict, name: str, n_batches: int, n: int, n_keys: int, see
         ArrayBatch({"key_id": i, "ts": t, "value": d}, key_vocab=vocab, value_scale=0.1)
         for i, t, d in zip(ids_b, ts_b, deci_b)
     ]
-    emitted = []  # wall time at which the source handed out batch b
-
-    class _Part(StatelessSourcePartition):
-        def __init__(self):
-            self._i = 0
-
-        def next_batch(self):
-            if self._i >= len(batches):
-                raise StopIteration()
-            batch = batches[self._i]
-            self._i += 1
-            emitted.append(time.perf_counter())
-            return batch
-
-    class _Source(DynamicSource):
-        def build(self, step_id, worker_index, worker_count):
-            return _Part() if worker_index == 0 else _Empty()
-
-    class _Empty(StatelessSourcePartition):
-        def next_batch(self):
-            raise StopIteration()
-
-    metas = []  # (wall, item) per close's metadata event
-
-    class _MetaPart(StatelessSinkPartition):
-        def write_batch(self, items):
-            now = time.perf_counter()
-            metas.extend((now, it) for it in items)
-
-    class _MetaSink(DynamicSink):
-        def build(self, step_id, worker_index, worker_count):
-            return _MetaPart()
+    source, emitted = _timed_source(batches)
+    meta_sink, metas = _timed_sink()
 
     align = datetime.fromtimestamp(_T0_US / 1e6, tz=timezone.utc)
     wait = timedelta(seconds=WINDOW_WAIT_S)
     clock = win.EventClock(ts_getter=column_ts, wait_for_system_duration=wait)
     flow = Dataflow(f"windows_{name}")
-    s = op.input("inp", flow, _Source())
+    s = op.input("inp", flow, source)
     if name == "tumbling":
         windower = win.TumblingWindower(length=timedelta(minutes=1), align_to=align)
         wo = win.stats_window("w", s, clock, windower)
@@ -1484,7 +1563,7 @@ def _window_case(card: dict, name: str, n_batches: int, n: int, n_keys: int, see
     down, late = [], []
     op.output("down", wo.down, TestingSink(down))
     op.output("late", wo.late, TestingSink(late))
-    op.output("meta", wo.meta, _MetaSink())
+    op.output("meta", wo.meta, meta_sink)
 
     states, timers, undo = _recording_states(timed=("alloc", "_fetch"))
     try:
@@ -1545,28 +1624,7 @@ def _window_case(card: dict, name: str, n_batches: int, n: int, n_keys: int, see
             worst = max(worst, _check_mean(gmean, mean, mean_abs, f"{name} window {kw}"))
         merged = 0
 
-    # -- p99 window-close latency ----------------------------------------------
-    # A close is due once its station's watermark (max event time -
-    # wait) passes the window's end (sessions: the end plus the gap).
-    # The batch that first carries the station there triggered it;
-    # closes due only at EOF, and those triggered by the first batch
-    # (allocator and kernel warm-up), are left out.
-    keymax = np.full((n_batches, n_keys), np.iinfo(np.int64).min, dtype=np.int64)
-    for b, (i_b, t_b) in enumerate(zip(ids_b, ts_b)):
-        np.maximum.at(keymax[b], i_b, t_b)
-    keymax = np.maximum.accumulate(keymax, axis=0) - WINDOW_WAIT_S * 1_000_000
-    lats = []
-    for wall, (k, (_wid, meta)) in metas:
-        key = int(k[8:])
-        due = us(meta.close_time)
-        col = keymax[:, key]
-        if name == "session":
-            b = int(np.searchsorted(col, due + _MINUTE_US, side="right"))
-        else:
-            b = int(np.searchsorted(col, due, side="left"))
-        if 1 <= b < n_batches:
-            lats.append(wall - emitted[b])
-    lats.sort()
+    lats = _close_latencies(name, metas, ids_b, ts_b, emitted, n_keys, align)
     p99 = lats[int(len(lats) * 0.99)] if lats else None
     alloc_t, fetch_t = timers[0]["alloc"], timers[0]["_fetch"]
     state = states[0]
@@ -4993,6 +5051,538 @@ def phase_kafka(card: dict) -> int:
     return run["launches"]
 
 
+# -- phase 14 ----------------------------------------------------------------
+
+#: (run, the data's windows, batches of ``WINDOW_BATCH_ROWS``, seed) of
+#: the public operators that lower to the fold kernel, at full width
+#: (the min and the max share their rows).
+OPS_LOWERED = (
+    ("fold_mean_tumbling", "tumbling", 8, 140),
+    ("fold_sum_sliding", "sliding", 2, 141),
+    ("reduce_min_tumbling", "tumbling", 4, 142),
+    ("reduce_max_tumbling", "tumbling", 4, 142),
+    ("mean_window_session", "session", 4, 144),
+)
+OPS_FINAL_BATCHES = 8
+#: The fall-back runs and their lowered counterparts: 2^16 rows of the
+#: tumbling data, four event-minutes of 2^14 rows.
+OPS_SMALL_BATCHES = 4
+OPS_SMALL_ROWS = 1 << 14
+#: (fall-back run, the lowered run on the same rows) pairs.
+OPS_FALLBACKS = (
+    ("plain_folder", "sum_tumbling"),
+    ("sum_items_unpromotable", "sum_tumbling"),
+    ("session_custom_merger", "sum_session"),
+)
+OPS_HOST_ROWS = 1 << 16
+OPS_BUDGET_S = 90.0
+
+
+class _Reading(float):
+    """A reading that carries its event time as ``at``, not as the
+    ``ts`` of ``xla.TsValue``: the window tier's itemized promotion
+    cannot read it, so a lowered numeric fold fed such rows falls back
+    to the host on first contact (the reference's rule)."""
+
+    def __new__(cls, value: float, at):
+        self = super().__new__(cls, value)
+        self.at = at
+        return self
+
+
+def _ops_window(case: str, s, align):
+    """The windowed operator of ``case`` over stream ``s``; returns its
+    ``WindowOut`` and whether the port lowers it to the card."""
+    import operator
+    from datetime import timedelta
+
+    import bytewax_tpu_torch.operators.windowing as win
+    from bytewax_tpu_torch import xla
+
+    wait = timedelta(seconds=WINDOW_WAIT_S)
+    clock = win.EventClock(ts_getter=xla.column_ts, wait_for_system_duration=wait)
+    tumbling = win.TumblingWindower(length=timedelta(minutes=1), align_to=align)
+    sliding = win.SlidingWindower(
+        length=timedelta(minutes=10), offset=timedelta(minutes=1), align_to=align
+    )
+    session = win.SessionWindower(gap=timedelta(seconds=60))
+    if case == "fold_mean_tumbling":
+        mean = xla.MEAN
+        return win.fold_window("w", s, clock, tumbling, mean.make_acc, mean, mean.merge), True
+    if case == "fold_sum_sliding":
+        return win.fold_window("w", s, clock, sliding, lambda: 0.0, xla.SUM, operator.add), True
+    if case == "reduce_min_tumbling":
+        return win.reduce_window("w", s, clock, tumbling, xla.MIN), True
+    if case == "reduce_max_tumbling":
+        return win.reduce_window("w", s, clock, tumbling, xla.MAX), True
+    if case == "mean_window_session":
+        return win.mean_window("w", s, clock, session), True
+    if case == "sum_tumbling":
+        return win.reduce_window("w", s, clock, tumbling, xla.SUM), True
+    if case == "sum_items_promoted":
+        # ``(station, TsValue)`` rows promote onto the card through the
+        # native host library's encoder; where it does not build they
+        # fall back to the host, as the reference defines.
+        from bytewax_tpu_torch.native import is_available
+
+        return win.reduce_window("w", s, clock, tumbling, xla.SUM), is_available()
+    if case == "sum_session":
+        return win.fold_window("w", s, clock, session, lambda: 0, xla.SUM, xla.SUM), True
+    if case == "plain_folder":
+        return win.fold_window(
+            "w", s, clock, tumbling, lambda: 0.0, lambda acc, v: acc + v, operator.add
+        ), False
+    if case == "sum_items_unpromotable":
+        items_clock = win.EventClock(ts_getter=lambda v: v.at, wait_for_system_duration=wait)
+        return win.reduce_window("w", s, items_clock, tumbling, xla.SUM), False
+    if case == "session_custom_merger":
+        merger = lambda a, b: a + b  # noqa: E731 (the same sum, not xla.SUM)
+        return win.fold_window("w", s, clock, session, lambda: 0, xla.SUM, merger), False
+    raise ValueError(case)
+
+
+def _ops_batches(ids_b, ts_b, deci_b, vocab, align, form: str):
+    """Phase 6's columnar batches, or the same rows itemized as
+    ``(station, TsValue)`` (``form="tsvalue"``) or ``(station,
+    _Reading)`` (``form="reading"``)."""
+    from datetime import timedelta
+
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.xla import TsValue
+
+    if form == "columnar":
+        return [
+            ArrayBatch({"key_id": i, "ts": t, "value": d}, key_vocab=vocab, value_scale=0.1)
+            for i, t, d in zip(ids_b, ts_b, deci_b)
+        ]
+    cls = TsValue if form == "tsvalue" else _Reading
+    batches = []
+    for i_b, t_b, d_b in zip(ids_b, ts_b, deci_b):
+        vals = (d_b * 0.1).astype("float32").tolist()
+        batches.append(
+            [
+                (vocab[i], cls(v, align + timedelta(microseconds=t - _T0_US)))
+                for i, t, v in zip(i_b.tolist(), t_b.tolist(), vals)
+            ]
+        )
+    return batches
+
+
+_OPS_DATA = {}
+
+
+def _ops_data(data: str, n_batches: int, n: int, seed: int, session: bool):
+    """Phase 6's rows for a phase 14 run and their float64 oracle, made
+    once for the runs that share them: the batches' ids, times and
+    int16 values, the late rows' count, and the on-time rows' windows
+    (sessions: ``{(station, open µs, close µs): (mean, count, mean
+    |value|)}``; else :func:`_window_oracle`'s)."""
+    import numpy as np
+
+    key = (data, n_batches, n, seed, session)
+    if key not in _OPS_DATA:
+        ids_b, ts_b, deci_b = _window_data(data, n_batches, n, WINDOW_KEYS, seed)
+        ids = np.concatenate(ids_b)
+        ts = np.concatenate(ts_b)
+        vals = (np.concatenate(deci_b) * 0.1).astype(np.float32).astype(np.float64)
+        late_rows = _late_oracle(ids, ts, WINDOW_WAIT_S * 1_000_000)
+        ok = ~late_rows
+        if session:
+            want = {
+                cell: (total / c, c, abs_total / c)
+                for cell, (c, total, abs_total) in _sessions(ids[ok], ts[ok], vals[ok]).items()
+            }
+        else:
+            want = _window_oracle(data, ids[ok], ts[ok], vals[ok], WINDOW_KEYS)
+        _OPS_DATA[key] = (ids_b, ts_b, deci_b, int(late_rows.sum()), want)
+    return _OPS_DATA[key]
+
+
+def _ops_window_run(card: dict, case: str, data: str, n_batches: int, n: int, seed: int,
+                    form: str = "columnar") -> dict:
+    """One windowed operator through ``run_main`` over phase 6's data
+    (``data``: its tumbling, sliding or session rows), held against the
+    float64 oracle: counts, min and max exact; a mean, and a sum over
+    its count, within ``MEAN_RTOL`` of the window's mean |value|.  A
+    lowered run must fold on the card (launches, state on ``cuda``, no
+    demotion); a run the port keeps on or moves to the host must fold
+    nothing on the card.  Emits an ``operators`` line; returns the
+    run with its windows (``cells``: station and window id, or for
+    sessions station, open and close µs, to the value) and the oracle's
+    count and mean |value| of each (``scale``)."""
+    from datetime import datetime, timedelta, timezone
+
+    import numpy as np
+
+    import bytewax_tpu_torch.operators as op
+    from bytewax_tpu_torch.dataflow import Dataflow
+    from bytewax_tpu_torch.testing import TestingSink
+
+    session = "session" in case
+    ids_b, ts_b, deci_b, n_late, want = _ops_data(data, n_batches, n, seed, session)
+    vocab = np.array([f"station_{i:05d}" for i in range(WINDOW_KEYS)])
+    align = datetime.fromtimestamp(_T0_US / 1e6, tz=timezone.utc)
+    batches = _ops_batches(ids_b, ts_b, deci_b, vocab, align, form)
+    source, emitted = _timed_source(batches)
+    meta_sink, metas = _timed_sink()
+    flow = Dataflow(f"operators_{case}")
+    s = op.input("inp", flow, source)
+    wo, lowered = _ops_window(case, s, align)
+    down, late = [], []
+    op.output("down", wo.down, TestingSink(down))
+    op.output("late", wo.late, TestingSink(late))
+    op.output("meta", wo.meta, meta_sink)
+
+    demoted = _demotions()
+    states, timers, undo = _recording_states(timed=("_scatter",))
+    try:
+        run = _run_flow(flow)
+    finally:
+        undo()
+    folds = sum(t["_scatter"].calls for t in timers)
+    if lowered:
+        _require_launches(run["launches"], case)
+        if len(states) != 1 or states[0].device.type != DEV or not folds:
+            msg = f"{case}: no fold on cuda: {[s.device for s in states]}, {folds} folds"
+            raise AssertionError(msg)
+        if _demotions() != demoted:
+            msg = f"{case}: the lowered step was demoted to the host tier"
+            raise AssertionError(msg)
+    elif run["launches"] or folds:
+        # A run that falls back at its first delivery may have built
+        # its window state, but folds nothing into it.
+        msg = f"{case}: a host run folded on the card ({folds} folds, {run['launches']} launches)"
+        raise AssertionError(msg)
+
+    expand = 10 if data == "sliding" else 1
+    if len(late) != n_late * expand:
+        msg = f"{case}: {len(late)} late events, oracle {n_late} × {expand}"
+        raise AssertionError(msg)
+    meta_of = {(k, wid): m for _wall, (k, (wid, m)) in metas}
+    if len(meta_of) != len(down):
+        msg = f"{case}: {len(down)} closes but {len(meta_of)} metadata events"
+        raise AssertionError(msg)
+
+    def us(dt):
+        return (dt - align) // timedelta(microseconds=1) + _T0_US
+
+    if session:
+        cells = {
+            (int(k[8:]), us(meta_of[(k, wid)].open_time), us(meta_of[(k, wid)].close_time)): v
+            for k, (wid, v) in down
+        }
+    else:
+        cells = {(int(k[8:]), wid): v for k, (wid, v) in down}
+    if len(cells) != len(down) or set(cells) != set(want):
+        msg = f"{case}: {len(cells)} windows out, {len(want)} expected"
+        raise AssertionError(msg)
+    worst = 0.0
+    scale = {}
+    for cell, w in want.items():
+        got, where = cells[cell], f"{case} window {cell}"
+        if session:
+            mean, count, mean_abs = w
+        else:
+            mn, mean, mx, count, mean_abs = w
+        scale[cell] = (count, mean_abs)
+        if case.startswith("reduce_m"):
+            if got != (mn if "min" in case else mx):
+                msg = f"{where}: {got} != {(mn, mx)}"
+                raise AssertionError(msg)
+            continue
+        if case == "fold_mean_tumbling":
+            total, got_count = got
+            if got_count != count:
+                msg = f"{where}: count {got_count} != {count}"
+                raise AssertionError(msg)
+            got = total / got_count
+        elif case != "mean_window_session":
+            got = got / count  # a sum, checked as its mean
+        worst = max(worst, _check_mean(got, mean, mean_abs, where))
+
+    lats = _close_latencies(
+        "session" if session else data, metas, ids_b, ts_b, emitted, WINDOW_KEYS, align
+    )
+    _emit(
+        card,
+        "operators",
+        case=case,
+        tier="device" if lowered else "host",
+        rows_form=form,
+        rows=n * n_batches,
+        batches=n_batches,
+        stations=WINDOW_KEYS,
+        windows_closed=len(down),
+        late_events=len(late),
+        seconds=run["seconds"],
+        rows_per_s=n * n_batches / run["seconds"],
+        kernel_launches=run["launches"],
+        p99_close_latency_s=lats[int(len(lats) * 0.99)] if lats else None,
+        closes_timed=len(lats),
+        max_mean_rel_err=worst,
+        states_built=len(states),
+        device_folds=folds,
+        phase_seconds=run["phase_seconds"],
+    )
+    return dict(run, cells=cells, scale=scale)
+
+
+def _ops_same_windows(fallback: str, host: dict, lowered: str, dev: dict) -> float:
+    """A fall-back run's windows against the lowered run's on the same
+    rows: the same windows, each sum within ``MEAN_RTOL`` of the
+    window's mean |value| over its count."""
+    if set(host["cells"]) != set(dev["cells"]):
+        msg = f"{fallback}: {len(host['cells'])} windows, {len(dev['cells'])} in {lowered}"
+        raise AssertionError(msg)
+    worst = 0.0
+    for cell, (count, mean_abs) in dev["scale"].items():
+        worst = max(
+            worst,
+            _check_mean(
+                host["cells"][cell] / count,
+                dev["cells"][cell] / count,
+                mean_abs,
+                f"{fallback} against {lowered}, window {cell}",
+            ),
+        )
+    return worst
+
+
+def _ops_final_run(card: dict, kind: str, n_batches: int, n: int, seed: int) -> int:
+    """``reduce_final(xla.MIN or MAX)`` with no window over phase 6's
+    dictionary-encoded tumbling batches (the station ids and the int16
+    values, no ``ts``), every station's result exact against the
+    float32 product the fixed-point fold computes (``float32(q) *
+    float32(0.1)``, monotonic in ``q``); returns the launches."""
+    import numpy as np
+
+    import bytewax_tpu_torch.operators as op
+    from bytewax_tpu_torch import xla
+    from bytewax_tpu_torch.dataflow import Dataflow
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.testing import TestingSink
+
+    ids_b, _ts_b, deci_b = _window_data("tumbling", n_batches, n, WINDOW_KEYS, seed)
+    vocab = np.array([f"station_{i:05d}" for i in range(WINDOW_KEYS)])
+    batches = [
+        ArrayBatch({"key_id": i, "value": d}, key_vocab=vocab, value_scale=0.1)
+        for i, d in zip(ids_b, deci_b)
+    ]
+    source, _emitted = _timed_source(batches)
+    flow = Dataflow(f"operators_final_{kind}")
+    s = op.input("inp", flow, source)
+    s = op.reduce_final("r", s, getattr(xla, kind.upper()))
+    out = []
+    op.output("out", s, TestingSink(out))
+    demoted = _demotions()
+    states, _timers, undo = _recording_states()
+    try:
+        run = _run_flow(flow)
+    finally:
+        undo()
+    case = f"reduce_final_{kind}"
+    _require_launches(run["launches"], case)
+    if len(states) != 1 or states[0].device.type != DEV or _demotions() != demoted:
+        msg = f"{case}: state not on cuda, or demoted: {[s.device for s in states]}"
+        raise AssertionError(msg)
+    ids = np.concatenate(ids_b)
+    q = np.concatenate(deci_b).astype(np.int64)
+    pick = np.full(WINDOW_KEYS, 1 << 20 if kind == "min" else -(1 << 20), dtype=np.int64)
+    (np.minimum if kind == "min" else np.maximum).at(pick, ids, q)
+    seen = np.bincount(ids, minlength=WINDOW_KEYS) > 0
+    want = {
+        str(vocab[i]): float(np.float32(pick[i]) * np.float32(0.1))
+        for i in np.flatnonzero(seen).tolist()
+    }
+    got = dict(out)
+    if len(got) != len(out) or got != want:
+        bad = sorted(k for k in want if got.get(k) != want[k])[:3]
+        msg = f"{case}: {len(got)} stations out, {len(want)} expected; differ at {bad}"
+        raise AssertionError(msg)
+    _emit(
+        card,
+        "operators",
+        case=case,
+        tier="device",
+        rows_form="columnar",
+        rows=n * n_batches,
+        batches=n_batches,
+        stations=len(want),
+        seconds=run["seconds"],
+        rows_per_s=n * n_batches / run["seconds"],
+        kernel_launches=run["launches"],
+        table_capacity=states[0].capacity,
+        phase_seconds=run["phase_seconds"],
+    )
+    return run["launches"]
+
+
+def _ops_host_runs(card: dict) -> dict:
+    """``join``, ``join_window`` (tumbling) and ``collect_window``
+    (tumbling) over ``OPS_HOST_ROWS`` keyed rows on the card's host,
+    each equal to a Python oracle, each launching the fold kernel no
+    time; returns their launches."""
+    from collections import defaultdict
+    from datetime import datetime, timedelta, timezone
+
+    import numpy as np
+
+    import bytewax_tpu_torch.operators as op
+    import bytewax_tpu_torch.operators.windowing as win
+    from bytewax_tpu_torch.dataflow import Dataflow
+    from bytewax_tpu_torch.testing import TestingSink, TestingSource
+
+    n = OPS_HOST_ROWS
+    rng = np.random.RandomState(141)
+    keys = [f"k{i:05d}" for i in range(n)]
+    left = [(keys[i], i) for i in rng.permutation(n).tolist()]
+    right = [(keys[i], -i) for i in rng.permutation(n).tolist() if i % 7]
+    # Keyed rows (station, (event time, i)), event times rising over
+    # four minutes, and a side of the window join for each.
+    align = datetime.fromtimestamp(_T0_US / 1e6, tz=timezone.utc)
+    step = 4 * _MINUTE_US // n
+    rows = [
+        (f"station_{k:05d}", (align + timedelta(microseconds=i * step), i))
+        for i, k in enumerate(rng.randint(0, WINDOW_KEYS, size=n).tolist())
+    ]
+    sides = (rng.rand(n) < 0.5).astype(int).tolist()
+    # The two sides of the join arrive through two inputs polled in
+    # turn: a wait past the data's four minutes keeps either from
+    # running the other's rows late, so every window closes at EOF.
+    wait = timedelta(minutes=10)
+    tumbling = win.TumblingWindower(length=timedelta(minutes=1), align_to=align)
+
+    def clock():
+        return win.EventClock(ts_getter=lambda v: v[0], wait_for_system_duration=wait)
+
+    def wid(v):
+        return (v[0] - align) // timedelta(minutes=1)
+
+    cells = defaultdict(list)
+    last = defaultdict(lambda: [None, None])
+    for (k, v), side in zip(rows, sides):
+        cells[(k, wid(v))].append(v[1])
+        last[(k, wid(v))][side] = v[1]
+
+    def join_flow(out):
+        flow = Dataflow("operators_join")
+        lefts = op.input("l", flow, TestingSource(left, batch_size=4096))
+        rights = op.input("r", flow, TestingSource(right, batch_size=4096))
+        op.output("out", op.join("join", lefts, rights), TestingSink(out))
+        return flow, sorted((keys[i], (i, -i)) for i in range(n) if i % 7), sorted
+
+    def join_window_flow(out):
+        flow = Dataflow("operators_join_window")
+        inputs = [
+            op.input(f"side{j}", flow, TestingSource(
+                [r for r, side in zip(rows, sides) if side == j], batch_size=4096
+            ))
+            for j in (0, 1)
+        ]
+        wo = win.join_window("jw", clock(), tumbling, *inputs)
+        op.output("out", wo.down, TestingSink(out))
+        want = sorted((k, (w, tuple(last[(k, w)]))) for k, w in last)
+
+        def shape(got):
+            return sorted(
+                (k, (w, tuple(None if v is None else v[1] for v in row))) for k, (w, row) in got
+            )
+
+        return flow, want, shape
+
+    def collect_window_flow(out):
+        flow = Dataflow("operators_collect_window")
+        s = op.input("inp", flow, TestingSource(rows, batch_size=4096))
+        wo = win.collect_window("cw", s, clock(), tumbling)
+        op.output("out", wo.down, TestingSink(out))
+        want = sorted((k, (w, vals)) for (k, w), vals in cells.items())
+
+        def shape(got):
+            return sorted((k, (w, [v[1] for v in vals])) for k, (w, vals) in got)
+
+        return flow, want, shape
+
+    launches = {}
+    for name, build in (
+        ("join", join_flow),
+        ("join_window", join_window_flow),
+        ("collect_window", collect_window_flow),
+    ):
+        out = []
+        flow, want, shape = build(out)
+        states, _timers, undo = _recording_states()
+        try:
+            run = _run_flow(flow)
+        finally:
+            undo()
+        if shape(out) != want:
+            msg = f"{name}: {len(out)} rows out, {len(want)} expected, or they differ"
+            raise AssertionError(msg)
+        if run["launches"] or states:
+            msg = f"{name}: a host operator folded on the card"
+            raise AssertionError(msg)
+        rows_in = len(left) + len(right) if name == "join" else n
+        _emit(
+            card,
+            "operators",
+            case=name,
+            tier="host",
+            rows=rows_in,
+            rows_out=len(out),
+            seconds=run["seconds"],
+            rows_per_s=rows_in / run["seconds"],
+            kernel_launches=run["launches"],
+            phase_seconds=run["phase_seconds"],
+        )
+        launches[name] = run["launches"]
+    return launches
+
+
+def phase_operators(card: dict) -> dict:
+    """Phase 14: the public window and keyed operators that lower to
+    the fold kernel at full width, the fall-backs the reference
+    defines (each launching the kernel no time and equal to the
+    lowered output on the same rows), and host operators on the card's
+    host; returns each run's fold launches.  Fails past
+    ``OPS_BUDGET_S``."""
+    t0 = time.perf_counter()
+    launches = {}
+    for case, data, n_batches, seed in OPS_LOWERED:
+        run = _ops_window_run(card, case, data, n_batches, WINDOW_BATCH_ROWS, seed)
+        launches[case] = run["launches"]
+    _OPS_DATA.clear()
+    for kind in ("min", "max"):
+        launches[f"reduce_final_{kind}"] = _ops_final_run(
+            card, kind, OPS_FINAL_BATCHES, WINDOW_BATCH_ROWS, seed=147
+        )
+    small = {}
+    for case, form in (
+        ("sum_tumbling", "columnar"),
+        ("sum_items_promoted", "tsvalue"),
+        ("sum_session", "columnar"),
+        ("plain_folder", "columnar"),
+        ("sum_items_unpromotable", "reading"),
+        ("session_custom_merger", "columnar"),
+    ):
+        small[case] = _ops_window_run(
+            card, case, "tumbling", OPS_SMALL_BATCHES, OPS_SMALL_ROWS, seed=148, form=form
+        )
+        launches[case] = small[case]["launches"]
+    worst = {
+        case: _ops_same_windows(case, small[case], lowered, small[lowered])
+        for case, lowered in OPS_FALLBACKS + (("sum_items_promoted", "sum_tumbling"),)
+    }
+    _OPS_DATA.clear()
+    launches.update(_ops_host_runs(card))
+    seconds = time.perf_counter() - t0
+    _emit(card, "operators_phase", phase_seconds=seconds, budget_s=OPS_BUDGET_S,
+          fallback_max_mean_rel_err=worst, launches=launches)
+    if seconds > OPS_BUDGET_S:
+        msg = f"phase 14 took {seconds:.1f} s, over its {OPS_BUDGET_S} s budget"
+        raise AssertionError(msg)
+    return launches
+
+
 def main() -> int:
     if not (HERE / "bytewax_tpu_torch" / "csrc" / "segment_fold.cu").exists():
         print(
@@ -5074,6 +5664,8 @@ def main() -> int:
         bucket_launches[path] = counts["bucket"]
         merge_launches[path] = counts["merge"]
     launches["kafka"] = phase_kafka(card)
+    for path, n in phase_operators(card).items():
+        launches[f"operators_{path}"] = n
 
     times = shapes["brc_413"]
     scan_times = scan["times"]["welford"]
