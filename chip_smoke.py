@@ -153,7 +153,30 @@ Phases, each of which raises on any failure:
    ``join``, ``join_window`` and ``collect_window`` over 2^16 keyed
    rows on the card's host against a Python oracle.  The phase fails
    past 90 s;
-15. report — one ``{"kernels": [...]}`` line.
+15. residency — key-state residency and the ingest coalescer
+   (``BYTEWAX_TPU_STATE_BUDGET=65536``,
+   ``BYTEWAX_TPU_HOST_STATE_BUDGET=131072`` and a spill directory on
+   local disk): ``brc_flow_columnar`` over a dictionary of 2^20
+   stations, fed float32 batches of 2^18 rows whose rows come 98% from
+   a hot band of 2^15 stations that advances 2^14 a batch around a
+   ring of 2^18 and 2% from the whole dictionary: 10 batches (the last
+   2 spill to disk) against the float64 oracle (counts, min and max
+   exact, means within 1e-5 of the mean |value|), with evictions,
+   restores to the card from the host and from disk, spill bytes, the
+   peak of resident keys at the drain points and one fold a batch; the
+   first 4 batches on 4 shards of the card and on the single-device
+   tier, equal; the first 6 with a recovery store, one epoch a batch,
+   aborted before batch 3 and resumed exactly once; ``anomaly_flow``
+   over 4 batches of the same traffic at 2^20 sensors against phase
+   8's oracle; a 2^16-row
+   run whose every restore fails (``residency_restore``), which
+   demotes once after all three tiers hold keys and still equals the
+   oracle; and 2^22 1BRC rows at 10,000 stations as 1,024
+   dictionary-encoded batches of 2^12 rows through ``ArrayBatchSource``
+   at the default coalescing target (far fewer folds than batches)
+   and with ``BYTEWAX_TPU_INGEST_TARGET_ROWS=0`` (one fold a batch).
+   The phase fails past 90 s;
+16. report — one ``{"kernels": [...]}`` line.
 
 Phases 5 and 6 hold their output against a float64 numpy oracle of
 the same semantics: counts, min and max exactly, means within 1e-5 of
@@ -171,7 +194,11 @@ exiting non-zero, a store run whose restarted processes launched no
 merge (quantized) or no bucket or fold (exact), or a store holding a
 live ``\x00gsync-`` row after the clean end; phase 14 on a lowered
 run that launched no fold, left ``cuda`` or was demoted, and on a
-fall-back or host run that folded on the card at all).
+fall-back or host run that folded on the card at all; phase 15 on a
+run that left ``cuda`` or its tier, held more keys on the card than
+its budget at a drain point, launched its kernel no time, demoted
+(except the fault run, which must demote once), evicted, restored or
+spilled nothing where it must, or folded other than once a batch).
 
 Every result line is JSON and carries the card's name and power
 limit.  The last line is ``{"ok": true, "device": {...}}``.
@@ -1964,11 +1991,12 @@ def _anomaly_data(n_batches: int, n: int, n_keys: int, seed: int):
     return _ANOMALY_DATA[args]
 
 
-def _make_anomaly_data(n_batches: int, n: int, n_keys: int, seed: int):
+def _make_anomaly_data(n_batches: int, n: int, n_keys: int, seed: int, ids_b=None):
     """Sensor readings and their float64 oracle, made together.
 
     Each batch holds ``n`` rows of sensors drawn uniformly from
-    ``n_keys``.  A sensor's readings are one-decimal values around its
+    ``n_keys`` (or the given per-batch sensor ids ``ids_b``, each below
+    ``n_keys``).  A sensor's readings are one-decimal values around its
     own level and spread, with a rare outlier; each is generated in
     the sensor's order against the oracle's running Welford state, and
     redrawn while its oracle z lies within 1e-3 (relative) of the
@@ -1979,7 +2007,8 @@ def _make_anomaly_data(n_batches: int, n: int, n_keys: int, seed: int):
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    ids_b = [rng.randint(0, n_keys, n).astype(np.int32) for _ in range(n_batches)]
+    if ids_b is None:
+        ids_b = [rng.randint(0, n_keys, n).astype(np.int32) for _ in range(n_batches)]
     ids = np.concatenate(ids_b)
     order = np.argsort(ids, kind="stable")
     counts = np.bincount(ids, minlength=n_keys)
@@ -5583,6 +5612,595 @@ def phase_operators(card: dict) -> dict:
     return launches
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+#: Phase 15's station dictionary; the ring the hot band advances
+#: around, the band, its step a batch and its share of a batch's rows
+#: (the rest are uniform over the dictionary).  The band would come
+#: back to the ring's first keys in batch 15 (half of it) and wholly
+#: from batch ``RES_RING // RES_STEP`` = 16 on.
+RES_KEYS = 1 << 20
+RES_RING = 1 << 18
+RES_BAND = 1 << 15
+RES_STEP = 1 << 14
+RES_HOT_SHARE = 0.98
+RES_ROWS = 1 << 18
+#: Batches of the budgeted fold, of the crash run and the epoch it
+#: aborts at, and of the scan and sharded runs.  Cut from 24, 24 (12),
+#: 8 and 8 to fit the phase's 90 s on the H100's host with room for a
+#: slower host, where a batch that spills costs 4-5 s (one SQLite
+#: statement a key spilled or read back): the fold's last 2 batches
+#: spill, and the uniform rows read spilled keys back from disk, but
+#: the band does not come back; the other runs stay before the spill.
+RES_BATCHES = 10
+RES_CRASH_BATCHES = 6
+RES_CRASH_EPOCH = 3
+RES_SCAN_BATCHES = 4
+RES_SHARD_BATCHES = 4
+#: Device-resident and host-resident key budgets a step.
+RES_BUDGET = 65536
+RES_HOST_BUDGET = 131072
+#: The restore-fault run: 2^16 rows in 16 batches, all from a band
+#: small enough that its keys reach all three tiers before the band
+#: comes back (at batch 15) and the first restore fails.
+RES_FAULT_BATCHES = 16
+RES_FAULT_ROWS = 1 << 12
+RES_FAULT_BUDGET = 1024
+RES_FAULT_RING = 4096
+RES_FAULT_BAND = 512
+RES_FAULT_STEP = 256
+#: The coalescer runs: 1BRC rows, rows a source batch, stations.
+COALESCE_ROWS = 1 << 22
+COALESCE_BATCH_ROWS = 1 << 12
+COALESCE_STATIONS = 10_000
+RES_BUDGET_S = 90.0
+
+_RES_VOCAB = []
+
+
+def _res_vocab():
+    """The phase's dictionary of ``RES_KEYS`` station names (made once)."""
+    import numpy as np
+
+    if not _RES_VOCAB:
+        _RES_VOCAB.append(np.array([f"station_{i:07d}" for i in range(RES_KEYS)]))
+    return _RES_VOCAB[0]
+
+
+def _band_ids(n_batches: int, rows: int, seed: int, ring=None, band=None, step=None, hot_share=None):
+    """Per-batch station ids: ``hot_share`` of each batch's rows from
+    the hot band (``band`` keys from ``b * step``, modulo ``ring``; by
+    default the phase's), the rest uniform over ``RES_KEYS``."""
+    import numpy as np
+
+    ring, band, step = ring or RES_RING, band or RES_BAND, step or RES_STEP
+    share = RES_HOT_SHARE if hot_share is None else hot_share
+    rng = np.random.RandomState(seed)
+    out = []
+    for b in range(n_batches):
+        hot = rng.rand(rows) < share
+        in_band = (b * step + rng.randint(0, band, rows)) % ring
+        out.append(np.where(hot, in_band, rng.randint(0, RES_KEYS, rows)).astype(np.int32))
+    return out
+
+
+def _band_batches(n_batches: int, rows: int, seed: int, **shape):
+    """Band traffic as dictionary-encoded batches of float32
+    one-decimal readings; returns the batches and their float64
+    oracle."""
+    import numpy as np
+
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+
+    ids_b = _band_ids(n_batches, rows, seed, **shape)
+    rng = np.random.RandomState(seed + 1)
+    vals_b = [np.round(rng.randn(rows) * 10.0 + 12.0, 1).astype(np.float32) for _ in ids_b]
+    vocab = _res_vocab()
+    batches = [ArrayBatch({"key_id": i, "value": v}, key_vocab=vocab) for i, v in zip(ids_b, vals_b)]
+    return batches, _res_oracle(ids_b, vals_b)
+
+
+def _res_oracle(ids_b, vals_b) -> dict:
+    """Per-station count, sum, min and max in float64, and the rows'
+    mean absolute value (the scale of a float32 sum's error)."""
+    import numpy as np
+
+    ids = np.concatenate(ids_b)
+    vals = np.concatenate(vals_b).astype(np.float64)
+    # Rows sorted by (station, value): each station's first and last
+    # row hold its min and max.
+    order = np.lexsort((vals, ids))
+    ids_s, vals_s = ids[order], vals[order]
+    heads = np.flatnonzero(np.r_[True, ids_s[1:] != ids_s[:-1]])
+    tails = np.r_[heads[1:] - 1, len(ids_s) - 1]
+    mn = np.full(RES_KEYS, np.inf)
+    mx = np.full(RES_KEYS, -np.inf)
+    mn[ids_s[heads]] = vals_s[heads]
+    mx[ids_s[tails]] = vals_s[tails]
+    return {
+        "count": np.bincount(ids, minlength=RES_KEYS),
+        "sum": np.bincount(ids, weights=vals, minlength=RES_KEYS),
+        "min": mn,
+        "max": mx,
+        "scale": float(np.abs(vals).mean()),
+    }
+
+
+def _res_finals(finals) -> dict:
+    """``stats`` finals ``[(station, (min, mean, max, count))]`` as
+    columns indexed by station id."""
+    import numpy as np
+
+    n = len(finals)
+    ids = np.fromiter((int(k[len("station_"):]) for k, _v in finals), dtype=np.int64, count=n)
+    cols = np.array([v for _k, v in finals], dtype=np.float64).reshape(n, 4)
+    return {"ids": ids, "min": cols[:, 0], "mean": cols[:, 1], "max": cols[:, 2], "count": cols[:, 3]}
+
+
+def _check_res_finals(finals, want: dict, where: str) -> float:
+    """The finals of a budgeted run against the float64 oracle: every
+    station once, counts, min and max exact, means within
+    ``MEAN_RTOL`` of the rows' mean |value|; returns the worst mean
+    error in that unit."""
+    import numpy as np
+
+    got = _res_finals(finals)
+    live = np.flatnonzero(want["count"])
+    order = np.argsort(got["ids"])
+    ids = got["ids"][order]
+    if not np.array_equal(ids, live):
+        msg = f"{where}: {len(ids)} stations out ({len(np.unique(ids))} distinct), {len(live)} expected"
+        raise AssertionError(msg)
+    for name in ("count", "min", "max"):
+        bad = np.flatnonzero(got[name][order] != want[name][live])
+        if len(bad):
+            i = live[bad[0]]
+            msg = f"{where}: {len(bad)} stations' {name} differ (station {i}: {got[name][order][bad[0]]} vs {want[name][i]})"
+            raise AssertionError(msg)
+    err = np.abs(got["mean"][order] - want["sum"][live] / want["count"][live]) / want["scale"]
+    worst = float(err.max())
+    if not worst <= MEAN_RTOL:
+        msg = f"{where}: a mean is off by {worst} of the mean |value|"
+        raise AssertionError(msg)
+    return worst
+
+
+def _check_res_same(finals, other, where: str) -> float:
+    """Two budgeted runs' finals over the same rows: the same stations,
+    counts, min and max, and means within ``MEAN_RTOL`` of each other
+    relative to the larger |mean| (float32 sums fold in another order
+    on each tier)."""
+    import numpy as np
+
+    a, b = _res_finals(finals), _res_finals(other)
+    oa, ob = np.argsort(a["ids"]), np.argsort(b["ids"])
+    if not np.array_equal(a["ids"][oa], b["ids"][ob]):
+        raise AssertionError(f"{where}: the two runs' stations differ")
+    for name in ("count", "min", "max"):
+        if not np.array_equal(a[name][oa], b[name][ob]):
+            raise AssertionError(f"{where}: {name} differs between the runs")
+    scale = np.maximum(1.0, np.maximum(np.abs(a["mean"][oa]), np.abs(b["mean"][ob])))
+    worst = float((np.abs(a["mean"][oa] - b["mean"][ob]) / scale).max())
+    if not worst <= MEAN_RTOL:
+        raise AssertionError(f"{where}: means differ by {worst} between the runs")
+    return worst
+
+
+def _check_rounded(out, finals, where: str) -> None:
+    """``brc_flow_columnar``'s rounded rows are the captured finals,
+    rounded, one a station."""
+    got = dict(out)
+    if len(got) != len(out) or len(got) != len(finals):
+        raise AssertionError(f"{where}: {len(out)} rows out for {len(finals)} stations")
+    for key, (mn, mean, mx, _count) in finals:
+        if got.get(key) != (round(mn, 1), round(mean, 1), round(mx, 1)):
+            raise AssertionError(f"{where}, {key}: {got.get(key)} out of {(mn, mean, mx)}")
+
+
+class _Residency:
+    """For one run: what the residency managers return from
+    ``finalize``, the spilled keys read back to the card (spill-store
+    reads inside ``prepare``), the tiers' sizes when a demotion drains
+    them, and the seconds of ``load_many`` (a resume's install) —
+    by wrapping those methods for a ``with`` block.  Every peak
+    resident-key counter is set back to 0 on the way in, so the block
+    reads its own runs' peaks."""
+
+    def __enter__(self):
+        from bytewax_tpu_torch.engine import flight
+        from bytewax_tpu_torch.engine.residency import ResidentKeyState, SpillStore
+
+        for key in [k for k in flight.RECORDER.counters if k.startswith("state_resident_keys_peak[")]:
+            del flight.RECORDER.counters[key]
+        self.finals, self.drained = [], []
+        self.disk_restores = 0
+        self.load_many_s = 0.0
+        self._saved = [
+            (ResidentKeyState, name, ResidentKeyState.__dict__[name])
+            for name in ("finalize", "prepare", "demotion_snapshots", "load_many")
+        ] + [(SpillStore, "get", SpillStore.__dict__["get"])]
+        orig = {name: fn for _cls, name, fn in self._saved}
+        probe = self
+        inside = []
+
+        def finalize(state):
+            out = orig["finalize"](state)
+            probe.finals.extend(out)
+            return out
+
+        def prepare(state, *args, **kwargs):
+            inside.append(True)
+            try:
+                return orig["prepare"](state, *args, **kwargs)
+            finally:
+                inside.pop()
+
+        def get(store, key):
+            if inside:
+                probe.disk_restores += 1
+            return orig["get"](store, key)
+
+        def demotion_snapshots(state):
+            probe.drained.append(state.status())
+            return orig["demotion_snapshots"](state)
+
+        def load_many(state, items):
+            t0 = time.perf_counter()
+            try:
+                return orig["load_many"](state, items)
+            finally:
+                probe.load_many_s += time.perf_counter() - t0
+
+        ResidentKeyState.finalize = finalize
+        ResidentKeyState.prepare = prepare
+        ResidentKeyState.demotion_snapshots = demotion_snapshots
+        ResidentKeyState.load_many = load_many
+        SpillStore.get = get
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+        return False
+
+    @staticmethod
+    def peak() -> int:
+        from bytewax_tpu_torch.engine import flight
+
+        return max(
+            (v for k, v in flight.RECORDER.counters.items() if k.startswith("state_resident_keys_peak[")),
+            default=0,
+        )
+
+
+def _res_knobs(root: Path, name: str, budget=None, host_budget=None, **extra) -> dict:
+    """The residency settings of one run (by default the phase's
+    budgets), its spill files under ``root`` (local disk)."""
+    return {
+        "BYTEWAX_TPU_STATE_BUDGET": str(budget or RES_BUDGET),
+        "BYTEWAX_TPU_HOST_STATE_BUDGET": str(host_budget or RES_HOST_BUDGET),
+        "BYTEWAX_TPU_SPILL_DIR": str(root / f"spill_{name}"),
+        **extra,
+    }
+
+
+def _res_run(card: dict, name: str, flow, rows: int, knobs: dict, tier: str = "single", db=None,
+             demote: bool = False) -> dict:
+    """Run ``flow`` once under ``knobs`` (with a store in ``db``, one
+    epoch a batch; without one, the default epoch interval: a close
+    with no store still reads, then drops, every touched key's
+    snapshot); check that its one device state stayed on the card, on
+    the tier asked for, that it launched its kernels, held the budget
+    at every drain point, and demoted (only where ``demote``); return
+    its ``residency`` line with the finals and the demotion's tiers."""
+    from datetime import timedelta
+
+    from bytewax_tpu_torch.recovery import RecoveryConfig
+
+    demoted_before = _demotions()
+    kwargs = {}
+    if db is not None:
+        kwargs = {"epoch_interval": timedelta(0), "recovery_config": RecoveryConfig(str(db))}
+    states, _timers, undo = _recording_states()
+    try:
+        with _Knobs(**knobs), _Tier(tier, "cuda:0"), _Residency() as res, _StoreProbe() as probe:
+            run = _run_flow(flow, **kwargs)
+            peak = res.peak()
+    finally:
+        undo()
+    demoted = _demotions() - demoted_before
+    if demoted != (1 if demote else 0):
+        raise AssertionError(f"{name}: {demoted} steps demoted to the host tier")
+    if len(states) != 1:
+        raise AssertionError(f"{name}: {len(states)} device states")
+    state = states[0]
+    devices = state.mesh.devices if tier == "sharded" else [state.device]
+    if any(d.type != DEV for d in devices) or type(state).__name__.startswith("Sharded") != (tier == "sharded"):
+        raise AssertionError(f"{name}: {type(state).__name__} on {devices}")
+    if run["launches"] <= 0:
+        raise AssertionError(f"{name}: the segment-fold kernel was launched no time")
+    if (run["bucket_launches"] > 0) != (tier == "sharded"):
+        raise AssertionError(f"{name}: shard_bucket launched {run['bucket_launches']} times")
+    budget = int(knobs["BYTEWAX_TPU_STATE_BUDGET"])
+    if not 0 < peak <= budget:
+        raise AssertionError(f"{name}: {peak} keys resident at a drain point, budget {budget}")
+    counters = run["counters"]
+    line = {
+        "flow": name,
+        "tier": tier,
+        "rows": rows,
+        "seconds": run["seconds"],
+        "rows_per_s": rows / run["seconds"],
+        "fold_launches": run["launches"],
+        "scan_launches": run["scan_launches"],
+        "bucket_launches": run["bucket_launches"],
+        "budget": budget,
+        "host_budget": int(knobs["BYTEWAX_TPU_HOST_STATE_BUDGET"]),
+        "peak_resident_keys": peak,
+        "evictions": counters.get("state_evictions_count", 0),
+        "restores": counters.get("residency_restore_count", 0),
+        "disk_restores": res.disk_restores,
+        "spill_bytes": counters.get("state_spill_bytes", 0),
+        "evict_s": run["phase_seconds"].get("evict", 0.0),
+        "restore_s": run["phase_seconds"].get("restore", 0.0),
+        "step_demotions": demoted,
+        "drained_tiers": res.drained,
+        "table_capacity": getattr(state, "capacity", None),
+        "phase_seconds": run["phase_seconds"],
+    }
+    if db is not None:
+        line.update(probe.numbers(), resident_load_many_s=res.load_many_s)
+    return dict(line, finals=res.finals, run=run)
+
+
+def _res_emit(card: dict, line: dict, **extra) -> dict:
+    shown = {k: v for k, v in line.items() if k not in ("finals", "run")}
+    _emit(card, "residency", **shown, **extra)
+    return line
+
+
+def _res_fold(card: dict, root: Path, batches, want: dict) -> dict:
+    """15.1: the budgeted fold over every batch: exact against the
+    oracle, one fold a batch, evictions, restores from the host and
+    from disk, and spill bytes."""
+    from bytewax_tpu_torch.models.brc import ArrayBatchSource, brc_flow_columnar
+    from bytewax_tpu_torch.testing import TestingSink
+
+    out = []
+    flow = brc_flow_columnar(ArrayBatchSource(batches), TestingSink(out))
+    line = _res_run(card, "budgeted_fold", flow, RES_ROWS * len(batches), _res_knobs(root, "fold"))
+    if line["fold_launches"] != len(batches):
+        raise AssertionError(f"budgeted fold: {line['fold_launches']} folds for {len(batches)} batches")
+    for what in ("evictions", "restores", "disk_restores", "spill_bytes"):
+        if not line[what] > 0:
+            raise AssertionError(f"budgeted fold: {what} {line[what]}")
+    worst = _check_res_finals(line["finals"], want, "budgeted fold")
+    _check_rounded(out, line["finals"], "budgeted fold")
+    return _res_emit(card, line, max_abs_mean_err=worst, batches=len(batches))
+
+
+def _res_scan(card: dict, root: Path, times: dict) -> dict:
+    """15.2: ``anomaly_flow`` over band traffic at ``RES_KEYS`` sensors
+    under the budget, held against phase 8's float64 oracle (on the
+    sensors the traffic touches)."""
+    import numpy as np
+
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.models.anomaly import anomaly_flow
+    from bytewax_tpu_torch.models.brc import ArrayBatchSource
+
+    ids_b = _band_ids(RES_SCAN_BATCHES, RES_ROWS, seed=152)
+    touched, compact = np.unique(np.concatenate(ids_b), return_inverse=True)
+    compact_b = np.split(compact.astype(np.int32), np.cumsum([len(b) for b in ids_b])[:-1])
+    data = _make_anomaly_data(RES_SCAN_BATCHES, RES_ROWS, len(touched), 153, ids_b=compact_b)
+    vocab = _res_vocab()
+    index = {name: i for i, name in enumerate(vocab[touched].tolist())}
+    batches = [ArrayBatch({"key_id": i, "value": v}, key_vocab=vocab) for i, v in zip(ids_b, data["vals_b"])]
+    rows = RES_ROWS * RES_SCAN_BATCHES
+    with _Knobs(**_res_knobs(root, "scan")), _Residency() as res:
+        run = _scan_flow_case(
+            card, "budgeted_anomaly_flow",
+            lambda sink: anomaly_flow(ArrayBatchSource(batches), sink, threshold=THRESHOLD),
+            data, "zscore", slice(0, rows), index, times["welford"]["ms"], phase="residency",
+        )
+        peak = res.peak()
+    evictions = run["counters"].get("state_evictions_count", 0)
+    restores = run["counters"].get("residency_restore_count", 0)
+    if not (evictions > 0 and restores > 0 and 0 < peak <= RES_BUDGET):
+        raise AssertionError(f"budgeted scan: {evictions} evictions, {restores} restores, peak {peak}")
+    _emit(card, "residency", flow="budgeted_anomaly_flow", rows=rows, rows_per_s=rows / run["seconds"],
+          scan_launches=run["scan_launches"], peak_resident_keys=peak, evictions=evictions,
+          restores=restores, disk_restores=res.disk_restores,
+          spill_bytes=run["counters"].get("state_spill_bytes", 0),
+          evict_s=run["phase_seconds"].get("evict", 0.0), sensors=len(touched))
+    return run
+
+
+def _res_sharded(card: dict, root: Path, batches) -> dict:
+    """15.3: the budgeted fold over ``RES_SHARD_BATCHES`` batches on 4
+    shards of the card and on the single-device tier: the same
+    finals, each exact against the oracle."""
+    from bytewax_tpu_torch.models.brc import ArrayBatchSource, brc_flow_columnar
+    from bytewax_tpu_torch.testing import TestingSink
+
+    some = batches[:RES_SHARD_BATCHES]
+    want = _res_oracle([b.cols["key_id"] for b in some], [b.cols["value"] for b in some])
+    rows = RES_ROWS * len(some)
+    lines = {}
+    for tier in ("sharded", "single"):
+        out = []
+        flow = brc_flow_columnar(ArrayBatchSource(some), TestingSink(out))
+        line = _res_run(card, f"budgeted_fold_{tier}_{len(some)}", flow, rows, _res_knobs(root, tier), tier=tier)
+        line["max_abs_mean_err"] = _check_res_finals(line["finals"], want, f"budgeted {tier}")
+        _check_rounded(out, line["finals"], f"budgeted {tier}")
+        lines[tier] = line
+    line = lines["sharded"]
+    line["max_mean_diff_to_single"] = _check_res_same(line["finals"], lines["single"]["finals"], "sharded against single")
+    _res_emit(card, lines["single"])
+    _res_emit(card, line, single_rows_per_s=lines["single"]["rows_per_s"], shards=SHARDS)
+    return {"fold": line["fold_launches"], "bucket": line["bucket_launches"],
+            "single_fold": lines["single"]["fold_launches"]}
+
+
+def _res_crash(card: dict, root: Path, batches) -> dict:
+    """15.4: the budgeted fold over the first ``RES_CRASH_BATCHES``
+    batches with a recovery store, one epoch a batch, aborted before
+    batch ``RES_CRASH_EPOCH`` and resumed: exactly once against the
+    oracle."""
+    from bytewax_tpu_torch.engine.xla import DeviceAggState
+    from bytewax_tpu_torch.models.brc import brc_flow_columnar
+    from bytewax_tpu_torch.testing import TestingSink
+
+    batches = batches[:RES_CRASH_BATCHES]
+    want = _res_oracle([b.cols["key_id"] for b in batches], [b.cols["value"] for b in batches])
+    db = _fresh_store(root, "residency_store")
+    source = _batch_source(batches, aborts=[RES_CRASH_EPOCH])
+    out = []
+    flow = brc_flow_columnar(source, TestingSink(out))
+    first = _res_run(card, "budgeted_store_aborted", flow, RES_ROWS * RES_CRASH_EPOCH,
+                     _res_knobs(root, "crash"), db=db)
+    if out or first["finals"]:
+        raise AssertionError("budgeted store run: output before the abort")
+    _res_emit(card, first)
+    # Time to recover: the resumed run's start to its first fold.
+    fold = DeviceAggState.update_batch
+    started, first_fold = [0.0], []
+
+    def timed_fold(state, batch):
+        if not first_fold:
+            first_fold.append(time.perf_counter() - started[0])
+        return fold(state, batch)
+
+    DeviceAggState.update_batch = timed_fold
+    try:
+        flow = brc_flow_columnar(source, TestingSink(out))
+        started[0] = time.perf_counter()
+        resumed = _res_run(card, "budgeted_store_resumed", flow, RES_ROWS * (len(batches) - RES_CRASH_EPOCH),
+                           _res_knobs(root, "crash"), db=db)
+    finally:
+        DeviceAggState.update_batch = fold
+    if resumed["fold_launches"] != len(batches) - RES_CRASH_EPOCH:
+        raise AssertionError(f"budgeted store resume: {resumed['fold_launches']} folds")
+    if not resumed["resume_rows_read"]:
+        raise AssertionError("budgeted store resume: read no state from the store")
+    worst = _check_res_finals(resumed["finals"], want, "budgeted store resume")
+    _check_rounded(out, resumed["finals"], "budgeted store resume")
+    _res_emit(card, resumed, max_abs_mean_err=worst, time_to_recover_s=first_fold[0])
+    return {"fold_launches": first["fold_launches"] + resumed["fold_launches"]}
+
+
+def _res_faults(card: dict, root: Path) -> dict:
+    """15.5: a small budgeted fold whose every restore fails
+    (``residency_restore``): the step demotes once, after all three
+    tiers hold keys, and its output equals the oracle."""
+    from bytewax_tpu_torch.models.brc import ArrayBatchSource, brc_flow_columnar
+    from bytewax_tpu_torch.testing import TestingSink
+
+    batches, want = _band_batches(RES_FAULT_BATCHES, RES_FAULT_ROWS, seed=154, ring=RES_FAULT_RING,
+                                  band=RES_FAULT_BAND, step=RES_FAULT_STEP, hot_share=1.0)
+    out = []
+    flow = brc_flow_columnar(ArrayBatchSource(batches), TestingSink(out))
+    knobs = _res_knobs(root, "faults", budget=RES_FAULT_BUDGET, host_budget=RES_FAULT_BUDGET,
+                       BYTEWAX_TPU_FAULTS="residency_restore:error:*")
+    line = _res_run(card, "restore_faults", flow, RES_FAULT_ROWS * RES_FAULT_BATCHES, knobs, demote=True)
+    (tiers,) = line["drained_tiers"]
+    if not (tiers["resident"] > 0 and tiers["evicted"] > 0 and tiers["spilled"] > 0):
+        raise AssertionError(f"restore faults: the demotion drained {tiers}")
+    live = want["count"] > 0
+    vocab = _res_vocab()
+    rounded = {
+        str(vocab[i]): (want["min"][i], want["sum"][i] / want["count"][i], want["max"][i])
+        for i in live.nonzero()[0]
+    }
+    worst = _check_brc(out, rounded, "restore faults")
+    return _res_emit(card, line, max_abs_mean_err=worst)
+
+
+def _res_coalesce(card: dict) -> dict:
+    """15.6: 1BRC rows as many small dictionary-encoded batches, at
+    the default coalescing target and with coalescing off."""
+    import numpy as np
+
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.models.brc import ArrayBatchSource, brc_flow_columnar, generate_batches
+    from bytewax_tpu_torch.testing import TestingSink
+
+    batches = generate_batches(COALESCE_ROWS, COALESCE_BATCH_ROWS, COALESCE_STATIONS, seed=155)
+    # The oracle over the rows as one batch (its histogram is per batch).
+    whole = ArrayBatch(
+        {name: np.concatenate([b.cols[name] for b in batches]) for name in ("key_id", "value")},
+        key_vocab=batches[0].key_vocab,
+        value_scale=batches[0].value_scale,
+    )
+    want = _reference([whole], COALESCE_STATIONS)
+    runs = {}
+    for name, target in (("coalesced", None), ("uncoalesced", "0")):
+        out = []
+        flow = brc_flow_columnar(ArrayBatchSource(batches), TestingSink(out))
+        states, _timers, undo = _recording_states()
+        demoted_before = _demotions()
+        try:
+            with _Knobs(**({} if target is None else {"BYTEWAX_TPU_INGEST_TARGET_ROWS": target})):
+                run = _run_flow(flow)
+        finally:
+            undo()
+        if _demotions() != demoted_before or len(states) != 1 or states[0].device.type != DEV:
+            raise AssertionError(f"coalescer {name}: demoted, or its state is not on the card")
+        worst = _check_brc(out, want, f"coalescer {name}")
+        runs[name] = dict(run, worst=worst)
+    fewer, every = runs["coalesced"]["launches"], runs["uncoalesced"]["launches"]
+    if every != len(batches) or not 0 < fewer <= len(batches) // 8:
+        raise AssertionError(f"coalescer: {fewer} folds coalesced, {every} uncoalesced, {len(batches)} batches")
+    polls = runs["coalesced"]["counters"].get("ingest_coalesced_polls", 0)
+    _emit(card, "coalesce", rows=COALESCE_ROWS, batches=len(batches), batch_rows=COALESCE_BATCH_ROWS,
+          stations=COALESCE_STATIONS, fold_launches=fewer, uncoalesced_fold_launches=every,
+          ingest_coalesced_polls=polls,
+          rows_per_s=COALESCE_ROWS / runs["coalesced"]["seconds"],
+          uncoalesced_rows_per_s=COALESCE_ROWS / runs["uncoalesced"]["seconds"],
+          max_abs_mean_err=max(r["worst"] for r in runs.values()),
+          phase_seconds=runs["coalesced"]["phase_seconds"],
+          uncoalesced_phase_seconds=runs["uncoalesced"]["phase_seconds"])
+    return {"coalesced": fewer, "uncoalesced": every}
+
+
+def phase_residency(card: dict, times: dict) -> dict:
+    """Phase 15: key-state residency and the ingest coalescer on the
+    card (``times``: phase 7's scan times); returns each run's
+    launches of each kernel.  Fails past ``RES_BUDGET_S``."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    fold, scan, bucket, steps = {}, {}, {}, {}
+
+    def step(name, fn, *args):
+        s0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            steps[name] = time.perf_counter() - s0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_residency_") as tmp:
+        root = Path(tmp)
+        batches, want = step("data", _band_batches, RES_BATCHES, RES_ROWS, 150)
+        fold["residency_fold"] = step("fold", _res_fold, card, root, batches, want)["fold_launches"]
+        sharded = step("sharded", _res_sharded, card, root, batches)
+        fold["residency_sharded"] = sharded["fold"]
+        fold["residency_single"] = sharded["single_fold"]
+        bucket["residency_sharded"] = sharded["bucket"]
+        fold["residency_store"] = step("store", _res_crash, card, root, batches)["fold_launches"]
+        del batches, want
+        scan["residency_anomaly"] = step("scan", _res_scan, card, root, times)["scan_launches"]
+        fold["residency_faults"] = step("faults", _res_faults, card, root)["fold_launches"]
+    for name, n in step("coalesce", _res_coalesce, card).items():
+        fold[f"coalesce_{name}"] = n
+    seconds = time.perf_counter() - t0
+    _emit(card, "residency_phase", phase_seconds=seconds, budget_s=RES_BUDGET_S, step_seconds=steps,
+          launches={"segment_fold": fold, "segment_scan": scan, "shard_bucket": bucket})
+    if seconds > RES_BUDGET_S:
+        raise AssertionError(f"phase 15 took {seconds:.1f} s, over its {RES_BUDGET_S} s budget")
+    return {"fold": fold, "scan": scan, "bucket": bucket}
+
+
 def main() -> int:
     if not (HERE / "bytewax_tpu_torch" / "csrc" / "segment_fold.cu").exists():
         print(
@@ -5666,6 +6284,10 @@ def main() -> int:
     launches["kafka"] = phase_kafka(card)
     for path, n in phase_operators(card).items():
         launches[f"operators_{path}"] = n
+    resident = phase_residency(card, scan["times"])
+    launches.update(resident["fold"])
+    scan_launches.update(resident["scan"])
+    bucket_launches.update(resident["bucket"])
 
     times = shapes["brc_413"]
     scan_times = scan["times"]["welford"]

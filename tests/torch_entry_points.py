@@ -2,7 +2,8 @@
 tests of the operator library and its execution semantics
 (``tests/test_torch_dataflow.py``, ``test_torch_errors.py``,
 ``test_torch_execution.py``, ``test_torch_operators.py``,
-``test_torch_windowing_ops.py``, ``test_torch_window_lowering.py``).
+``test_torch_windowing_ops.py``, ``test_torch_window_lowering.py``,
+and the residency, columnar-ingest, connector and native files).
 
 ``REF`` and ``PORT`` map the same names to each package's modules and
 classes; a test builds its flow through one of them (``pkg["op"]``,
@@ -218,3 +219,27 @@ def port_folds(monkeypatch):
 
     monkeypatch.setattr(port_sharded_state, "make_agg_state", recording)
     return folds
+
+
+@pytest.fixture
+def port_deliveries(monkeypatch):
+    """The length of each delivery the port's aggregation states take
+    through ``update``, ``update_items`` or ``update_batch``: one fold
+    each, whatever the path (string keys, items, dictionary ids)."""
+    lengths: List[int] = []
+    make = port_sharded_state.make_agg_state
+
+    def recording(kind, driver=None):
+        state = make(kind, driver=driver)
+        for name in ("update", "update_items", "update_batch"):
+            inner = getattr(state, name)
+
+            def counted(*args, _inner=inner):
+                lengths.append(len(args[0]))
+                return _inner(*args)
+
+            setattr(state, name, counted)
+        return state
+
+    monkeypatch.setattr(port_sharded_state, "make_agg_state", recording)
+    return lengths
