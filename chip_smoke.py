@@ -176,7 +176,39 @@ Phases, each of which raises on any failure:
    at the default coalescing target (far fewer folds than batches)
    and with ``BYTEWAX_TPU_INGEST_TARGET_ROWS=0`` (one fold a batch).
    The phase fails past 90 s;
-16. report — one ``{"kernels": [...]}`` line.
+16. resilience — connector resilience, device-fault demotion, the
+   graceful stop and the live endpoints on the card, over 1BRC readings
+   (10,000 stations, dictionary-encoded float32 one-decimal values,
+   2^20-row batches, one epoch a batch, ``xla.stats_final``, the fold
+   of ``brc_flow_columnar`` read before its rounding step): two
+   transient ``device_dispatch`` faults retried in place (8 batches,
+   8 folds, no demotion); a demotion mid-run (6 batches folded on the
+   card, then ``device_dispatch:error:7+`` with
+   ``BYTEWAX_TPU_DEMOTE_AFTER=3`` while a 2^16-row tail arrives), at
+   pipeline depths 1 and 3, the state read back from the ``cuda``
+   tables into host logics, 6 folds before it and none after; tumbling
+   ``stats_window`` over phase 6's stations and event-minutes (values
+   as float32) demoted with its open windows after 4 batches, and
+   ``anomaly_flow`` at 10,000 sensors demoted with its Welford state
+   after 4 (``DEMOTE_AFTER=2``), each with a 2^16-row tail on the
+   host; ``request_stop()`` from another thread once epoch 4 is
+   durable, the run returning ``GracefulStop`` and its store resumed
+   with zero epochs replayed, every row once; one run with the API
+   server on the loopback polled mid-run (``/status``, ``/metrics``,
+   ``/graph``, ``/healthz``: the flow map's device footprint on
+   ``/graph`` and ``/metrics`` equal to the state's ``cuda`` tensors'
+   ``nbytes``, h2d bytes and the ledger's ``device`` phase above 0),
+   a Perfetto dump and an OTLP/HTTP export to a stub collector that
+   must receive ``device_dispatch`` spans; and 2^22 lines of 1BRC text,
+   one in 1,000 undecodable, through
+   ``FileSource(columnar=True, on_error="dlq")`` with
+   ``source_poll:error:*:x3`` (3 retries, no restart, one DLQ row a
+   poison line). Each case is held to its float64 oracle (counts, min
+   and max exactly; means within 1e-5 of the mean |value|; z within
+   1e-4 of max(1, |z|); flags equal). The phase fails on a demotion it
+   did not plan, a planned one missing or at another launch, a run
+   that leaves ``cuda``, and past 90 s;
+17. report — one ``{"kernels": [...]}`` line.
 
 Phases 5 and 6 hold their output against a float64 numpy oracle of
 the same semantics: counts, min and max exactly, means within 1e-5 of
@@ -888,16 +920,17 @@ def _run_flow(flow, entry=None, expect=(), **kwargs) -> dict:
     scan_kernel.launches = 0
     bucket_kernel.launches = 0
     merge_kernel.launches = 0
-    raised = None
+    raised = status = None
     t0 = time.perf_counter()
     try:
-        (entry or run_main)(flow, **kwargs)
+        status = (entry or run_main)(flow, **kwargs)
     except expect as ex:
         raised = type(ex).__name__
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return {
         "raised": raised,
+        "status": status,
         "seconds": seconds,
         "launches": fold_kernel.launches,
         "scan_launches": scan_kernel.launches,
@@ -6201,6 +6234,672 @@ def phase_residency(card: dict, times: dict) -> dict:
     return {"fold": fold, "scan": scan, "bucket": bucket}
 
 
+# -- phase 16 -----------------------------------------------------------------
+
+#: Phase 16: the 1BRC readings (dictionary-encoded stations, float32
+#: one-decimal values): batches of the transient-fault, stop and
+#: observed runs, rows a batch, stations.
+RESIL_BATCHES = 8
+RESIL_ROWS = 1 << 20
+RESIL_KEYS = 10_000
+#: The demotion runs: batches folded on the card before the faulting
+#: epochs, then a tail of ``RESIL_TAIL_ROWS`` rows in
+#: ``RESIL_TAIL_BATCHES`` batches (the host tier folds it a row at a
+#: time), at each pipeline depth of ``RESIL_DEPTHS``.
+RESIL_CARD_BATCHES = 6
+RESIL_TAIL_ROWS = 1 << 16
+RESIL_TAIL_BATCHES = 4
+RESIL_DEPTHS = (1, 3)
+#: Event-minute batches of the window run and 2^20-row batches of the
+#: scan run on the card before their tails.
+RESIL_WINDOW_BATCHES = 4
+RESIL_SCAN_BATCHES = 4
+#: The graceful stop is requested once this many epochs are durable.
+RESIL_STOP_AFTER = 4
+#: The connector edge: lines of 1BRC text, one in this many undecodable.
+RESIL_LINES = 1 << 22
+RESIL_POISON_EVERY = 1000
+#: The observed run's API port (loopback only).
+RESIL_API_PORT = 13316
+RESIL_BUDGET_S = 90.0
+
+
+def _resil_batches(n_batches: int, rows: int, seed: int):
+    """1BRC readings as dictionary-encoded batches (int32 station ids,
+    float32 one-decimal values over ``_res_vocab``'s first
+    ``RESIL_KEYS`` names) and their per-batch columns."""
+    import numpy as np
+
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+
+    rng = np.random.RandomState(seed)
+    ids_b = [rng.randint(0, RESIL_KEYS, rows).astype(np.int32) for _ in range(n_batches)]
+    vals_b = [np.round(rng.randn(rows) * 10.0 + 12.0, 1).astype(np.float32) for _ in ids_b]
+    vocab = _res_vocab()[:RESIL_KEYS]
+    batches = [ArrayBatch({"key_id": i, "value": v}, key_vocab=vocab) for i, v in zip(ids_b, vals_b)]
+    return batches, ids_b, vals_b
+
+
+def _resil_flow(source, out: list, flow_id: str = "brc"):
+    """``brc_flow_columnar``'s fold (``xla.stats_final``), its finals
+    ``(station, (min, mean, max, count))`` read before the rounding
+    step, into ``out``."""
+    import bytewax_tpu_torch.operators as op
+    from bytewax_tpu_torch import xla
+    from bytewax_tpu_torch.dataflow import Dataflow
+    from bytewax_tpu_torch.testing import TestingSink
+
+    flow = Dataflow(flow_id)
+    s = op.input("inp", flow, source)
+    s = xla.stats_final("stats", s)
+    op.output("out", s, TestingSink(out))
+    return flow
+
+
+class _Demotions:
+    """For a ``with`` block: each demotion's kernel launches when it
+    read the device state back (``demotion_snapshots``, after the
+    pipeline's drain), the folds still in flight when it began, and
+    the ``demotion`` events and metric it left."""
+
+    def __enter__(self):
+        from bytewax_tpu_torch.engine import scan_accel, window_accel
+        from bytewax_tpu_torch.engine import xla as engine_xla
+        from bytewax_tpu_torch.engine.driver import _StatefulBatchRt
+        from bytewax_tpu_torch.ops import fold_kernel, scan_kernel
+
+        self.at, self.in_flight = [], []
+        self.t0 = time.time()
+        self.metric0 = _demotions()
+        probe = self
+        self._saved = []
+        for cls in (engine_xla.DeviceAggState, window_accel.DeviceWindowAggState, scan_accel.DeviceScanState):
+            orig = cls.__dict__["demotion_snapshots"]
+            self._saved.append((cls, "demotion_snapshots", orig))
+
+            def snapshots(state, _orig=orig):
+                probe.at.append({"fold": fold_kernel.launches, "scan": scan_kernel.launches,
+                                 "state": type(state).__name__})
+                return _orig(state)
+
+            cls.demotion_snapshots = snapshots
+        demote = _StatefulBatchRt.__dict__["_demote"]
+        self._saved.append((_StatefulBatchRt, "_demote", demote))
+
+        def demoting(rt, reason):
+            pipe = getattr(rt, "_pipe", None)
+            probe.in_flight.append(len(pipe) if pipe is not None else 0)
+            return demote(rt, reason)
+
+        _StatefulBatchRt._demote = demoting
+        return self
+
+    def __exit__(self, *exc):
+        from bytewax_tpu_torch.engine import flight
+
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+        self.events = [
+            {"step": e["step"], "keys": e["keys"], "reason": e["reason"]}
+            for e in flight.RECORDER.tail(1 << 16)
+            if e["kind"] == "demotion" and e["t"] >= self.t0
+        ]
+        self.count = _demotions() - self.metric0
+        return False
+
+
+def _resil_run(name: str, flow, knobs: dict, db=None, demotions: int = 0) -> dict:
+    """Run ``flow`` once, one epoch a batch (and a recovery store in
+    ``db``) under ``knobs``; check every device state it built stayed
+    on the card and that it demoted exactly ``demotions`` times (the
+    planned ones); return ``_run_flow``'s record with its demotions
+    and states."""
+    from datetime import timedelta
+
+    from bytewax_tpu_torch.recovery import RecoveryConfig
+
+    kwargs = {"epoch_interval": timedelta(0)}
+    if db is not None:
+        kwargs["recovery_config"] = RecoveryConfig(str(db))
+    states, _timers, undo = _recording_states()
+    scan_states, undo_scan = _recording_device_states()
+    knobs = {"BYTEWAX_FLIGHT_RECORDER": "1", "BYTEWAX_TPU_INGEST_TARGET_ROWS": "0", **knobs}
+    try:
+        with _Knobs(**knobs), _Demotions() as dem:
+            run = _run_flow(flow, **kwargs)
+    finally:
+        undo()
+        undo_scan()
+    built = states + scan_states
+    if not built or any(s.device.type != DEV for s in built):
+        raise AssertionError(f"{name}: device states on {[s.device for s in built]}")
+    if dem.count != demotions or len(dem.at) != demotions:
+        raise AssertionError(f"{name}: {dem.count} demotions ({len(dem.at)} read-backs), {demotions} planned")
+    return dict(run, dem=dem, states=built)
+
+
+def _resil_emit(card: dict, case: str, run: dict, rows: int, **extra) -> None:
+    counters = run["counters"]
+    _emit(card, "resilience", case=case, rows=rows, seconds=run["seconds"],
+          rows_per_s=rows / run["seconds"], fold_launches=run["launches"],
+          scan_launches=run["scan_launches"], faults=counters.get("fault_injected_count", 0),
+          io_retries=counters.get("io_retries_count", 0),
+          restarts=counters.get("worker_restart_count", 0), demotions=run["dem"].count,
+          demotion_events=run["dem"].events, phase_seconds=run["phase_seconds"], **extra)
+
+
+def _planned_demotion(name: str, run: dict, launches_before: int, kernel: str, faults: int,
+                      keys: int, step: str) -> None:
+    """A run that must demote once: ``faults`` faults, one demotion of
+    ``step`` migrating ``keys`` keys, read back after exactly
+    ``launches_before`` launches of ``kernel``, and none after."""
+    dem = run["dem"]
+    got_faults = run["counters"].get("fault_injected_count", 0)
+    launched = run["launches"] if kernel == "fold" else run["scan_launches"]
+    if got_faults != faults or len(dem.events) != 1:
+        raise AssertionError(f"{name}: {got_faults} faults, demotion events {dem.events}")
+    if not dem.events[0]["step"].startswith(step) or dem.events[0]["keys"] != keys:
+        raise AssertionError(f"{name}: demoted {dem.events[0]}, want {step} with {keys} keys")
+    if dem.at[0][kernel] != launches_before or launched != launches_before:
+        raise AssertionError(f"{name}: {dem.at[0][kernel]} launches before the demotion and "
+                             f"{launched - dem.at[0][kernel]} after, want {launches_before} and 0")
+
+
+def _resil_transient(card: dict, batches, want) -> int:
+    """16.1: two transient device faults, retried in place."""
+    from bytewax_tpu_torch.models.brc import ArrayBatchSource
+
+    out = []
+    run = _resil_run("transient", _resil_flow(ArrayBatchSource(batches), out),
+                     {"BYTEWAX_TPU_FAULTS": "device_dispatch:error:3:x2", "BYTEWAX_TPU_DEMOTE_AFTER": "3"})
+    faults = run["counters"].get("fault_injected_count", 0)
+    if faults != 2 or run["launches"] != len(batches):
+        raise AssertionError(f"transient faults: {faults} faults, {run['launches']} folds for {len(batches)} batches")
+    worst = _check_res_finals(out, want, "transient faults")
+    _resil_emit(card, "transient_device_faults", run, RESIL_ROWS * len(batches), max_abs_mean_err=worst,
+                fault_spec="device_dispatch:error:3:x2", demote_after=3)
+    return run["launches"]
+
+
+def _resil_demote(card: dict, batches, ids_b, vals_b) -> dict:
+    """16.2: the fold demoted mid-run with its state, at each depth."""
+    from bytewax_tpu_torch.models.brc import ArrayBatchSource
+
+    tail, tail_ids, tail_vals = _resil_batches(RESIL_TAIL_BATCHES, RESIL_TAIL_ROWS // RESIL_TAIL_BATCHES, 162)
+    fed = batches[:RESIL_CARD_BATCHES] + tail
+    want = _res_oracle(ids_b[:RESIL_CARD_BATCHES] + tail_ids, vals_b[:RESIL_CARD_BATCHES] + tail_vals)
+    rows = RESIL_ROWS * RESIL_CARD_BATCHES + RESIL_TAIL_ROWS
+    spec = f"device_dispatch:error:{RESIL_CARD_BATCHES + 1}+"
+    launches = {}
+    for depth in RESIL_DEPTHS:
+        name = f"demotion_depth{depth}"
+        out = []
+        run = _resil_run(name, _resil_flow(ArrayBatchSource(fed), out),
+                         {"BYTEWAX_TPU_FAULTS": spec, "BYTEWAX_TPU_DEMOTE_AFTER": "3",
+                          "BYTEWAX_TPU_PIPELINE_DEPTH": str(depth)}, demotions=1)
+        _planned_demotion(name, run, RESIL_CARD_BATCHES, "fold", 3, RESIL_KEYS, "brc.stats")
+        worst = _check_res_finals(out, want, name)
+        _resil_emit(card, name, run, rows, max_abs_mean_err=worst, fault_spec=spec, demote_after=3,
+                    pipeline_depth=depth, launches_at_demotion=run["dem"].at[0]["fold"],
+                    in_flight_at_demotion=run["dem"].in_flight[0], tail_rows=RESIL_TAIL_ROWS)
+        launches[name] = run["launches"]
+    return launches
+
+
+def _resil_windows(card: dict) -> int:
+    """16.3a: tumbling ``stats_window`` over phase 6's stations and
+    event-minutes (values as float32), demoted with its open windows
+    when the tail arrives."""
+    from datetime import datetime, timedelta, timezone
+
+    import numpy as np
+
+    import bytewax_tpu_torch.operators as op
+    import bytewax_tpu_torch.operators.windowing as win
+    from bytewax_tpu_torch.dataflow import Dataflow
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.models.brc import ArrayBatchSource
+    from bytewax_tpu_torch.testing import TestingSink
+    from bytewax_tpu_torch.xla import column_ts
+
+    n_batches = RESIL_WINDOW_BATCHES + 1
+    ids_b, ts_b, deci_b = _window_data("tumbling", n_batches, WINDOW_BATCH_ROWS, WINDOW_KEYS, seed=163)
+    cut = slice(0, RESIL_TAIL_ROWS)
+    ids_b[-1], ts_b[-1], deci_b[-1] = ids_b[-1][cut], ts_b[-1][cut], deci_b[-1][cut]
+    vals_b = [(d * 0.1).astype(np.float32) for d in deci_b]
+    vocab = np.array([f"station_{i:05d}" for i in range(WINDOW_KEYS)])
+    batches = [ArrayBatch({"key_id": i, "ts": t, "value": v}, key_vocab=vocab)
+               for i, t, v in zip(ids_b, ts_b, vals_b)]
+    align = datetime.fromtimestamp(_T0_US / 1e6, tz=timezone.utc)
+    clock = win.EventClock(ts_getter=column_ts, wait_for_system_duration=timedelta(seconds=WINDOW_WAIT_S))
+    windower = win.TumblingWindower(length=timedelta(minutes=1), align_to=align)
+    flow = Dataflow("resil_windows")
+    s = op.input("inp", flow, ArrayBatchSource(batches))
+    wo = win.stats_window("w", s, clock, windower)
+    down, late = [], []
+    op.output("down", wo.down, TestingSink(down))
+    op.output("late", wo.late, TestingSink(late))
+    spec = f"device_dispatch:error:{RESIL_WINDOW_BATCHES + 1}+"
+    run = _resil_run("window_demotion", flow, {"BYTEWAX_TPU_FAULTS": spec, "BYTEWAX_TPU_DEMOTE_AFTER": "2"},
+                     demotions=1)
+    _planned_demotion("window demotion", run, RESIL_WINDOW_BATCHES, "fold", 2, WINDOW_KEYS, "resil_windows.w")
+    dem = run["dem"]
+    ids = np.concatenate(ids_b)
+    ts = np.concatenate(ts_b)
+    vals = np.concatenate(vals_b).astype(np.float64)
+    late_rows = _late_oracle(ids, ts, WINDOW_WAIT_S * 1_000_000)
+    want = _window_oracle("tumbling", ids[~late_rows], ts[~late_rows], vals[~late_rows], WINDOW_KEYS)
+    if len(late) != int(late_rows.sum()):
+        raise AssertionError(f"window demotion: {len(late)} late events, oracle {int(late_rows.sum())}")
+    got = {(int(k[8:]), wid): value for k, (wid, value) in down}
+    if len(got) != len(down) or set(got) != set(want):
+        raise AssertionError(f"window demotion: {len(got)} windows out, {len(want)} expected")
+    worst = 0.0
+    for kw, (mn, mean, mx, count, mean_abs) in want.items():
+        gmn, gmean, gmx, gcount = got[kw]
+        if (gmn, gmx, gcount) != (mn, mx, count):
+            raise AssertionError(f"window demotion, window {kw}: {got[kw]} != {want[kw]}")
+        worst = max(worst, _check_mean(gmean, mean, mean_abs, f"window demotion, window {kw}"))
+    rows = len(ids)
+    _resil_emit(card, "window_demotion", run, rows, max_mean_rel_err=worst, fault_spec=spec, demote_after=2,
+                windows_closed=len(down), late_events=len(late), migrated_windows=dem.events[0]["keys"],
+                launches_at_demotion=dem.at[0]["fold"], tail_rows=RESIL_TAIL_ROWS)
+    return run["launches"]
+
+
+def _resil_scan(card: dict) -> int:
+    """16.3b: ``anomaly_flow`` at 10,000 sensors demoted when its tail
+    arrives: the Welford state crosses to the host logics."""
+    import numpy as np
+
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.models.anomaly import anomaly_flow
+    from bytewax_tpu_torch.models.brc import ArrayBatchSource
+    from bytewax_tpu_torch.testing import TestingSink
+
+    rng = np.random.RandomState(164)
+    tail = RESIL_TAIL_ROWS // RESIL_TAIL_BATCHES
+    ids_b = [rng.randint(0, SCAN_KEYS, SCAN_ROWS).astype(np.int32) for _ in range(RESIL_SCAN_BATCHES)]
+    ids_b += [rng.randint(0, SCAN_KEYS, tail).astype(np.int32) for _ in range(RESIL_TAIL_BATCHES)]
+    data = _make_anomaly_data(len(ids_b), 0, SCAN_KEYS, 165, ids_b=ids_b)
+    vocab = np.array([f"sensor_{i:07d}" for i in range(SCAN_KEYS)])
+    index = {k: i for i, k in enumerate(vocab.tolist())}
+    batches = [ArrayBatch({"key_id": i, "value": v}, key_vocab=vocab) for i, v in zip(data["ids_b"], data["vals_b"])]
+    out = []
+    spec = f"device_dispatch:error:{RESIL_SCAN_BATCHES + 1}+"
+    run = _resil_run("scan_demotion", anomaly_flow(ArrayBatchSource(batches), TestingSink(out), threshold=THRESHOLD),
+                     {"BYTEWAX_TPU_FAULTS": spec, "BYTEWAX_TPU_DEMOTE_AFTER": "2"}, demotions=1)
+    _planned_demotion("scan demotion", run, RESIL_SCAN_BATCHES, "scan", 2, SCAN_KEYS, "anomaly_detector.zscore")
+    rows = len(data["ids"])
+    checked = _check_scored("scan demotion", out, index, data, slice(0, rows), "zscore")
+    _resil_emit(card, "scan_demotion", run, rows, fault_spec=spec, demote_after=2,
+                launches_at_demotion=run["dem"].at[0]["scan"], tail_rows=RESIL_TAIL_ROWS, **checked)
+    return run["scan_launches"]
+
+
+def _stoppable_source(batches, hold_from: int, released):
+    """A resumable source of ``batches`` (its snapshot is the next
+    batch's index) that holds from index ``hold_from`` (empty polls,
+    woken every 2 ms) until ``released`` is set, at most 30 s."""
+    from datetime import datetime, timedelta, timezone
+
+    from bytewax_tpu_torch.inputs import FixedPartitionedSource, StatefulSourcePartition
+
+    deadline = time.monotonic() + 30.0
+
+    class _Part(StatefulSourcePartition):
+        def __init__(self, at):
+            self.at = at
+            self.awake = None
+
+        def next_batch(self):
+            if self.at >= len(batches):
+                raise StopIteration()
+            if self.at >= hold_from and not released.is_set() and time.monotonic() < deadline:
+                self.awake = datetime.now(timezone.utc) + timedelta(milliseconds=2)
+                return []
+            self.awake = None
+            self.at += 1
+            return batches[self.at - 1]
+
+        def next_awake(self):
+            return self.awake
+
+        def snapshot(self):
+            return self.at
+
+    class _Source(FixedPartitionedSource):
+        def list_parts(self):
+            return ["batches"]
+
+        def build_part(self, step_id, for_part, resume_state):
+            return _Part(resume_state or 0)
+
+    return _Source()
+
+
+def _resil_stop(card: dict, root: Path, batches, want) -> int:
+    """16.4: ``request_stop()`` from another thread once epoch
+    ``RESIL_STOP_AFTER`` is durable; the run returns ``GracefulStop``
+    and its store resumes with zero epochs replayed."""
+    import threading
+
+    from bytewax_tpu_torch.engine import driver, flight
+    from bytewax_tpu_torch.engine.recovery_store import RecoveryStore
+    from bytewax_tpu_torch.errors import GracefulStop
+
+    db = _fresh_store(root, "resilience_stop")
+    released = threading.Event()
+    base = flight.RECORDER.counters.get("epoch_close_count", 0)
+    asked = []
+
+    def stopper():
+        # Synchronous checkpoints: a close counted is a close committed.
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            if flight.RECORDER.counters.get("epoch_close_count", 0) - base >= RESIL_STOP_AFTER:
+                asked.append(time.perf_counter())
+                driver.request_stop()
+                break
+            time.sleep(0.001)
+        released.set()
+
+    out = []
+    thread = threading.Thread(target=stopper, daemon=True)
+    driver.reset_stop()
+    thread.start()
+    try:
+        first = _resil_run("stop", _resil_flow(_stoppable_source(batches, RESIL_STOP_AFTER, released), out), {}, db=db)
+    finally:
+        returned = time.perf_counter()
+        released.set()
+        thread.join(timeout=30)
+        driver.reset_stop()
+    status = first["status"]
+    if not asked:
+        raise AssertionError("graceful stop: the stop was never requested")
+    store = RecoveryStore(str(db))
+    try:
+        resume_epoch = store.resume_from().resume_epoch
+    finally:
+        store.close()
+    if not isinstance(status, GracefulStop) or out or resume_epoch != status.epoch + 1:
+        raise AssertionError(f"graceful stop: returned {status!r}, {len(out)} rows out, resume at {resume_epoch}")
+    consumed = first["launches"]
+    if not RESIL_STOP_AFTER <= consumed < len(batches):
+        raise AssertionError(f"graceful stop: {consumed} batches folded before the stop")
+    again = _resil_run("stop_resumed", _resil_flow(_stoppable_source(batches, 0, released), out), {}, db=db)
+    if again["status"] is not None or again["launches"] != len(batches) - consumed:
+        raise AssertionError(f"graceful stop resume: {again['launches']} folds after {consumed}, {again['status']!r}")
+    worst = _check_res_finals(out, want, "graceful stop resume")
+    rows = RESIL_ROWS * len(batches)
+    _resil_emit(card, "graceful_stop", first, RESIL_ROWS * consumed, stop_epoch=status.epoch,
+                resume_epoch=resume_epoch, stop_to_return_s=returned - asked[0], batches_before_stop=consumed)
+    _resil_emit(card, "graceful_stop_resumed", again, rows - RESIL_ROWS * consumed, max_abs_mean_err=worst,
+                replayed_epochs=resume_epoch - status.epoch - 1)
+    return first["launches"] + again["launches"]
+
+
+class _Collector:
+    """A stub OTLP/HTTP collector on the loopback: keeps every span
+    name posted to ``/v1/traces``."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        names = self.names = []
+
+        class _Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                doc = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                for rs in doc.get("resourceSpans", []):
+                    for ss in rs.get("scopeSpans", []):
+                        names.extend(sp["name"] for sp in ss.get("spans", []))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *args):
+                pass
+
+        self._srv = http.server.HTTPServer(("127.0.0.1", 0), _Handler)
+        self._thread = threading.Thread(target=self._srv.serve_forever, daemon=True)
+        self._thread.start()
+        self.url = f"http://127.0.0.1:{self._srv.server_address[1]}"
+
+    def close(self):
+        self._srv.shutdown()
+        self._srv.server_close()
+        self._thread.join(timeout=10)
+
+
+def _prom_value(text: str, name: str, labels: dict):
+    """One sample's value from Prometheus text exposition, or None."""
+    import re
+
+    for line in text.splitlines():
+        m = re.match(r"^(\w+)(?:\{(.*)\})? (\S+)$", line)
+        if not m or m.group(1) != name:
+            continue
+        got = dict(re.findall(r'(\w+)="([^"]*)"', m.group(2) or ""))
+        if got == labels:
+            return float(m.group(3))
+    return None
+
+
+def _resil_observed(card: dict, root: Path, batches, want) -> int:
+    """16.5: the endpoints polled while the fold runs on the card, a
+    Perfetto dump and an OTLP export."""
+    import urllib.request
+
+    import bytewax_tpu_torch.tracing as tracing
+    from bytewax_tpu_torch.inputs import DynamicSource, StatelessSourcePartition
+    from bytewax_tpu_torch.ops import fold_kernel
+
+    base = f"http://127.0.0.1:{RESIL_API_PORT}"
+    seen = {}
+    states_now = []
+
+    def fetch(path, raw=False):
+        with urllib.request.urlopen(base + path, timeout=10) as rsp:
+            body = rsp.read()
+            return (rsp.status, body.decode() if raw else json.loads(body))
+
+    class _Part(StatelessSourcePartition):
+        def __init__(self, mine):
+            self.i = 0 if mine else len(batches)
+
+        def next_batch(self):
+            if self.i >= len(batches):
+                raise StopIteration()
+            if self.i == len(batches) - 2 and not seen:
+                # Polled on the run loop's thread between two folds:
+                # the API thread answers while the state sits on the card.
+                t0 = time.perf_counter()
+                seen["launches"] = fold_kernel.launches
+                seen["nbytes"] = sum(
+                    int(t.nbytes) for st in states_now for t in st._fields.values()
+                )
+                seen["devices"] = sorted({t.device.type for st in states_now for t in st._fields.values()})
+                seen["status"] = fetch("/status")
+                seen["metrics"] = fetch("/metrics", raw=True)
+                seen["graph"] = fetch("/graph")
+                seen["healthz"] = fetch("/healthz")
+                seen["poll_s"] = time.perf_counter() - t0
+            self.i += 1
+            return batches[self.i - 1]
+
+    class _Source(DynamicSource):
+        def build(self, step_id, worker_index, worker_count):
+            return _Part(worker_index == 0)
+
+    trace_dir = root / "perfetto"
+    collector = _Collector()
+    prev = tracing._tracer
+    guard = tracing.setup_tracing(tracing.OtlpTracingConfig(service_name="chip-smoke", url=collector.url))
+    out = []
+    import bytewax_tpu_torch.engine.sharded_state as sharded_state
+
+    make = sharded_state.make_agg_state
+
+    def recording(kind, driver=None):
+        st = make(kind, driver=driver)
+        states_now.append(st)
+        return st
+
+    sharded_state.make_agg_state = recording
+    try:
+        run = _resil_run("observed", _resil_flow(_Source(), out),
+                         {"BYTEWAX_DATAFLOW_API_ENABLED": "1", "BYTEWAX_DATAFLOW_API_PORT": str(RESIL_API_PORT),
+                          "BYTEWAX_DATAFLOW_API_HOST": "127.0.0.1", "BYTEWAX_TPU_TRACE_DIR": str(trace_dir),
+                          "BYTEWAX_TPU_PIPELINE_DEPTH": "2"})
+    finally:
+        sharded_state.make_agg_state = make
+        guard.shutdown()
+        tracing._tracer = prev
+        collector.close()
+    if run["launches"] != len(batches):
+        raise AssertionError(f"observed run: {run['launches']} folds for {len(batches)} batches")
+    worst = _check_res_finals(out, want, "observed run")
+    (state,) = states_now
+    step = next(n for n in seen["graph"][1]["steps"] if n["tier"] == "device")
+    tele = step["telemetry"]["0"]
+    prom_bytes = _prom_value(seen["metrics"][1], "bytewax_step_device_bytes", {"step_id": step["step_id"]})
+    h2d = _prom_value(seen["metrics"][1], "bytewax_device_transfer_bytes_total", {"direction": "h2d"})
+    device_s = seen["status"][1]["ledger"]["phase_totals"].get("device", 0.0)
+    health = seen["healthz"]
+    if seen["devices"] != [DEV] or not seen["nbytes"]:
+        raise AssertionError(f"observed run: the state's tensors on {seen['devices']}")
+    if tele.get("device_bytes") != seen["nbytes"] or prom_bytes != seen["nbytes"] or tele.get("device_keys") != RESIL_KEYS:
+        raise AssertionError(f"observed run: footprint {tele.get('device_bytes')} on /graph, {prom_bytes} on "
+                             f"/metrics, {seen['nbytes']} bytes of the state's tensors")
+    if not (h2d and h2d > 0 and device_s > 0 and health[0] == 200 and health[1]["ready"]):
+        raise AssertionError(f"observed run: h2d {h2d}, device phase {device_s}, healthz {health}")
+    dumps = sorted(trace_dir.glob("epoch-p00-*.json"))
+    device_spans = sum(
+        1 for p in dumps for ev in json.loads(p.read_text())["traceEvents"]
+        if ev["ph"] == "X" and ev["name"] == "device"
+    )
+    otlp = collector.names.count("device_dispatch")
+    if not dumps or not device_spans or not otlp:
+        raise AssertionError(f"observed run: {len(dumps)} Perfetto dumps, {device_spans} device spans, "
+                             f"{otlp} device_dispatch spans at the collector")
+    _resil_emit(card, "observed", run, RESIL_ROWS * len(batches), max_abs_mean_err=worst,
+                device_bytes=seen["nbytes"], graph_device_bytes=tele["device_bytes"],
+                metrics_device_bytes=prom_bytes, device_keys=tele["device_keys"], h2d_bytes_total=h2d,
+                ledger_device_s=device_s, endpoint_poll_s=seen["poll_s"],
+                status_keys=sorted(seen["status"][1]), perfetto_dumps=len(dumps),
+                perfetto_device_spans=device_spans, otlp_device_dispatch_spans=otlp,
+                otlp_spans=len(collector.names), launches_when_polled=seen["launches"])
+    return run["launches"]
+
+
+def _resil_edge(card: dict, root: Path) -> int:
+    """16.6: 1BRC text with undecodable lines through
+    ``FileSource(columnar=True, on_error="dlq")`` and transient
+    ``source_poll`` faults into the fold on the card."""
+    import numpy as np
+
+    import bytewax_tpu_torch.operators as op
+    from bytewax_tpu_torch import xla
+    from bytewax_tpu_torch.connectors.files import FileSource
+    from bytewax_tpu_torch.dataflow import Dataflow
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.ops import text
+    from bytewax_tpu_torch.testing import TestingSink
+
+    rng = np.random.RandomState(166)
+    n = RESIL_LINES
+    ids = rng.randint(0, INGEST_STATIONS, size=n)
+    deci = np.clip(np.round(rng.randn(n) * 100 + 120), -999, 999).astype(np.int64)
+    stations = np.array([f"station_{i:05d}" for i in range(INGEST_STATIONS)])
+    temps = np.array([f"{q / 10:.1f}" for q in range(-999, 1000)])
+    lines = np.char.add(np.char.add(stations[ids], ";"), temps[deci + 999]).astype("S")
+    poison = np.arange(n) % RESIL_POISON_EVERY == RESIL_POISON_EVERY - 1
+    lines[poison] = b"\xff\xfe broken"
+    path = root / "edge.txt"
+    path.write_bytes(b"\n".join(lines.tolist()) + b"\n")
+    good = ~poison
+    want = _stats_oracle(stations, ids[good], deci[good])
+
+    def parse(batch):
+        cols = text.split_fields(batch.cols["line"], 2, ";")
+        return ArrayBatch({"key": cols[0], "value": cols[1].astype(np.float64)})
+
+    out = []
+    flow = Dataflow("resil_edge")
+    s = op.input("inp", flow, FileSource(str(path), columnar=True, on_error="dlq", chunk_bytes=4 << 20))
+    s = op.flat_map_batch("parse", s, parse)
+    s = xla.stats_final("stats", s)
+    op.output("out", s, TestingSink(out))
+    dlq_dir = root / "dlq"
+    run = _resil_run("connector_edge", flow,
+                     {"BYTEWAX_TPU_FAULTS": "source_poll:error:*:x3", "BYTEWAX_TPU_IO_RETRIES": "4",
+                      "BYTEWAX_TPU_IO_BACKOFF_S": "0.005", "BYTEWAX_TPU_DLQ_DIR": str(dlq_dir)})
+    counters = run["counters"]
+    dead = (dlq_dir / "dlq-p00.jsonl").read_text().splitlines()
+    n_poison = int(poison.sum())
+    if counters.get("io_retries_count", 0) != 3 or counters.get("worker_restart_count", 0) \
+            or run["launches"] <= 0:
+        raise AssertionError(f"connector edge: {counters}")
+    if len(dead) != n_poison or counters.get("dlq_records_count", 0) != n_poison:
+        raise AssertionError(f"connector edge: {len(dead)} DLQ rows, {counters.get('dlq_records_count')} "
+                             f"counted, {n_poison} poison lines")
+    if any("UnicodeDecodeError" not in json.loads(r)["error"] for r in dead[:16]):
+        raise AssertionError(f"connector edge: DLQ rows {dead[:2]}")
+    got = dict(out)
+    if set(got) != set(want):
+        raise AssertionError(f"connector edge: {len(got)} stations out, {len(want)} expected")
+    worst = 0.0
+    for station, (mn, mean, mx, count, mean_abs) in want.items():
+        gmn, gmean, gmx, gcount = got[station]
+        if (gmn, gmx, gcount) != (mn, mx, count):
+            raise AssertionError(f"connector edge, {station}: {got[station]} != {want[station]}")
+        worst = max(worst, _check_mean(gmean, mean, mean_abs, f"connector edge, {station}"))
+    _resil_emit(card, "connector_edge", run, n, max_mean_rel_err=worst, dlq_rows=len(dead),
+                poison_lines=n_poison, good_lines=int(good.sum()), fault_spec="source_poll:error:*:x3")
+    return run["launches"]
+
+
+def phase_resilience(card: dict) -> dict:
+    """Phase 16: device faults, demotion, the graceful stop, the live
+    endpoints and the connector edge on the card; returns each run's
+    launches of the fold and scan kernels.  Fails past
+    ``RESIL_BUDGET_S``."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    fold, scan, steps = {}, {}, {}
+
+    def step(name, fn, *args):
+        s0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            steps[name] = time.perf_counter() - s0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resilience_") as tmp:
+        root = Path(tmp)
+        batches, ids_b, vals_b = step("data", _resil_batches, RESIL_BATCHES, RESIL_ROWS, 160)
+        want = _res_oracle(ids_b, vals_b)
+        fold["resilience_transient"] = step("transient", _resil_transient, card, batches, want)
+        for name, n in step("demotion", _resil_demote, card, batches, ids_b, vals_b).items():
+            fold[f"resilience_{name}"] = n
+        fold["resilience_windows"] = step("windows", _resil_windows, card)
+        scan["resilience_anomaly"] = step("scan", _resil_scan, card)
+        fold["resilience_stop"] = step("stop", _resil_stop, card, root, batches, want)
+        fold["resilience_observed"] = step("observed", _resil_observed, card, root, batches, want)
+        fold["resilience_edge"] = step("edge", _resil_edge, card, root)
+    seconds = time.perf_counter() - t0
+    _emit(card, "resilience_phase", phase_seconds=seconds, budget_s=RESIL_BUDGET_S, step_seconds=steps,
+          launches={"segment_fold": fold, "segment_scan": scan})
+    if seconds > RESIL_BUDGET_S:
+        raise AssertionError(f"phase 16 took {seconds:.1f} s, over its {RESIL_BUDGET_S} s budget")
+    return {"fold": fold, "scan": scan}
+
+
 def main() -> int:
     if not (HERE / "bytewax_tpu_torch" / "csrc" / "segment_fold.cu").exists():
         print(
@@ -6288,6 +6987,9 @@ def main() -> int:
     launches.update(resident["fold"])
     scan_launches.update(resident["scan"])
     bucket_launches.update(resident["bucket"])
+    resilient = phase_resilience(card)
+    launches.update(resilient["fold"])
+    scan_launches.update(resilient["scan"])
 
     times = shapes["brc_413"]
     scan_times = scan["times"]["welford"]
