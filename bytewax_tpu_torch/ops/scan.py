@@ -92,7 +92,9 @@ class ScanKind:
       tuple order: the host-tier mapper's state tuple and the device
       tier's per-slot row are the same tuple, so recovery snapshots
       interchange between tiers (and with the JAX package).
-    - :meth:`lift`: one row's state contribution (elementwise).
+    - :meth:`lift`: one row's state contribution (elementwise); a
+      column it builds on another device than ``values`` is moved to
+      theirs.
     - :meth:`merge`: associative combine of two state tuples;
       ``merge(s, identity) == s``.
     - :meth:`emit`: per-row outputs from each row's pre-update state,
@@ -210,7 +212,10 @@ def generic_scan_body(kind: ScanKind) -> Callable:
         capacity = fields[names[0]].shape[0]
         idx = slots.long()
         seg_start = _seg_start(slots)
-        incl = _segmented_inclusive(kind.merge, seg_start, kind.lift(values))
+        # A user's lift may build a column without ``device=`` (on the
+        # CPU); ``.to`` is free where the devices already match.
+        lifted = tuple(c.to(values.device) for c in kind.lift(values))
+        incl = _segmented_inclusive(kind.merge, seg_start, lifted)
 
         def shifted(x, ident):
             prev = torch.cat([torch.full((1,), ident, dtype=x.dtype, device=x.device), x[:-1]])

@@ -55,7 +55,24 @@ Phases, each of which raises on any failure:
    ``ema`` and ``running_extrema`` flows at 10,000 sensors, each held
    against a float64 numpy oracle (values exact and in order per key,
    z within 1e-4 of max(1, |z|), flags equal, EMA within 1e-4
-   relative, extrema exact);
+   relative, extrema exact); then 8.x, the hot swap at full width:
+   ``anomaly_infer_flow`` again over the same rows in 2^16-item chunks,
+   one epoch a chunk, with ``update_params`` arming threshold 2.5
+   before the run: one swap (its epoch read from the flight ring), the
+   rows written before it flagged at 3.0 and every later row at 2.5,
+   the step's params on ``cuda`` with the armed digest and the
+   install's host seconds; one chunk with a mismatched tree, rejected
+   once, its output that of a run with no swap; 8.y, a scan kind of
+   the user's own (a running sum and count, no ``kernel``, its
+   ``lift`` building a column without ``device=``) through
+   ``op.stateful_map`` over one batch of the 10,000 sensors with a
+   store, its tables on ``cuda`` and no ``segment_scan`` launch, then
+   resumed with ``BYTEWAX_TPU_ACCEL=0`` over a 2^16-row tail (counts
+   exact, totals within 1e-5 of the running sum of |value|), and the
+   generic body's device ms a 2^20-row batch; 8.z,
+   ``torch_stateful_map`` of a capped decay over the same batch (within
+   1e-4 of max(1, |total|) of a float64 oracle), with its ``vmap``
+   steps and device ms a batch;
 9. recovery — SQLite recovery stores (``init_db_dir``,
    ``RecoveryConfig``, one epoch a batch) driven on the card, each run
    checked against its oracle: ``brc_flow_columnar`` over 16·2^20 rows
@@ -2300,6 +2317,426 @@ def _scan_flow_case(card: dict, name: str, flow_of, data, kind: str, rows: slice
     return dict(run, state=states[0], out=out, split=split)
 
 
+#: Phase 8.x: the threshold the hot swap installs (phase 8 scores at
+#: ``THRESHOLD``), and the items a chunk of the infer flow's source.
+SWAP_THRESHOLD = 2.5
+INFER_CHUNK = 1 << 16
+#: Phases 8.y and 8.z: batches of phase 8's sensors a run, and the
+#: rows of 8.y's tail, resumed on the host tier.
+USER_SCAN_BATCHES = 1
+USER_SCAN_TAIL = 1 << 16
+#: Phase 8.z's mapper: each key's total decays by this factor a row
+#: and is capped at ``UDF_CAP``.
+UDF_DECAY = 0.9
+UDF_CAP = 12.0
+#: 8.y's float32 running totals against the float64 oracle, relative
+#: to the running sum of the key's |value| (a float32 sum's scale).
+TOTAL_RTOL = 1e-5
+
+
+class _EpochSink:
+    """A one-partition sink into ``rows`` that marks the wall time
+    (``time.time()``, the flight ring's clock) and the row count before
+    each batch it takes."""
+
+    def __init__(self):
+        from bytewax_tpu_torch.outputs import DynamicSink, StatelessSinkPartition
+
+        self.rows, self.marks = [], []
+        probe = self
+
+        class _Part(StatelessSinkPartition):
+            def write_batch(self, items):
+                probe.marks.append((time.time(), len(probe.rows)))
+                probe.rows.extend(items)
+
+        class _Sink(DynamicSink):
+            def build(self, step_id, worker_index, worker_count):
+                return _Part()
+
+        self.sink = _Sink()
+
+    def rows_before(self, t: float) -> int:
+        """Rows written before wall time ``t``."""
+        return min((n for tt, n in self.marks if tt >= t), default=len(self.rows))
+
+
+def _ring_events(kind: str, t0: float) -> list:
+    from bytewax_tpu_torch.engine import flight
+
+    return [e for e in flight.RECORDER.tail(1 << 16) if e["kind"] == kind and e["t"] >= t0]
+
+
+def _infer_run(name: str, chunks, armed=None) -> dict:
+    """``anomaly_infer_flow`` over ``chunks`` of items, one epoch a
+    chunk, with ``armed`` params pending (``update_params``) at its
+    start; the flight ring on, the install timed.  Returns the run
+    with its output, sink marks, infer state and ring events."""
+    from datetime import timedelta
+
+    from bytewax_tpu_torch.engine import driver
+    from bytewax_tpu_torch.engine.infer import DeviceInferState
+    from bytewax_tpu_torch.models.anomaly import anomaly_infer_flow
+    from bytewax_tpu_torch.models.brc import ArrayBatchSource
+
+    sink = _EpochSink()
+    states, undo = _recording_device_states()
+    orig_install = DeviceInferState.install
+    install = _Timed(DeviceInferState, "install")
+    digest = None
+    t0 = time.time()
+    try:
+        with _Knobs(BYTEWAX_FLIGHT_RECORDER="1"):
+            driver.reset_params_update()
+            if armed is not None:
+                digest = driver.update_params(armed)
+            flow = anomaly_infer_flow(ArrayBatchSource(chunks), sink.sink, threshold=THRESHOLD)
+            run = _run_flow(flow, epoch_interval=timedelta(0))
+    finally:
+        undo()
+        DeviceInferState.install = orig_install
+        driver.reset_params_update()
+    if len(states) != 1 or states[0].device.type != DEV:
+        raise AssertionError(f"{name}: infer state not on cuda: {[s.device for s in states]}")
+    return dict(run, out=sink.rows, sink=sink, state=states[0], digest=digest, install=install,
+                swaps=_ring_events("params_swap", t0), rejected=_ring_events("params_swap_rejected", t0))
+
+
+def _check_swapped(name: str, out, index, data, n_before: int) -> dict:
+    """The infer flow's output against the oracle when its threshold
+    went from ``THRESHOLD`` to ``SWAP_THRESHOLD`` after the first
+    ``n_before`` rows written: values exact per key and in order, z
+    within ``Z_RTOL`` of max(1, |z|), each flag the device's own
+    compare of its z with the threshold of its side of the swap, and
+    the oracle's flag wherever the oracle's |z| is farther than
+    ``Z_RTOL`` from that threshold (the rows nearer are counted)."""
+    import numpy as np
+
+    n = len(out)
+    ids, (vals, z, flag) = _out_columns(out, index, 3)
+    after = np.arange(n) >= n_before
+    t = np.where(after, float(np.float32(SWAP_THRESHOLD)), float(np.float32(THRESHOLD)))
+    if not np.array_equal(flag.astype(bool), np.abs(z) > t):
+        raise AssertionError(f"{name}: a flag is not its z against its side's threshold")
+    # The oracle per row in output order: each key's rows come out in
+    # their input order, so a row's rank is its place among its key's.
+    order = np.argsort(ids, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(np.bincount(ids, minlength=len(index)))[:-1]])
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = np.arange(n) - starts[ids[order]]
+    if not (data["counts"][ids] > rank).all() or not np.array_equal(vals, data["grid"][ids, rank]):
+        raise AssertionError(f"{name}: values differ from the input per key and order")
+    z_want = _z_grid(data)[ids, rank]
+    scale = np.maximum(1.0, np.abs(z_want))
+    z_err = float((np.abs(z - z_want) / scale).max())
+    if not z_err <= Z_RTOL:
+        raise AssertionError(f"{name}: z off by {z_err} of max(1, |z|)")
+    near = np.abs(np.abs(z_want) - t) <= Z_RTOL * scale
+    if not np.array_equal(flag.astype(bool)[~near], (np.abs(z_want) > t)[~near]):
+        raise AssertionError(f"{name}: flags differ from the oracle's")
+    return {"max_z_err": z_err, "near_threshold_rows": int(near.sum()),
+            "anomalies_before": int(flag[~after].sum()), "anomalies_after": int(flag[after].sum())}
+
+
+def _z_grid(data):
+    """Per (sensor, rank) oracle z, from the per-row oracle."""
+    import numpy as np
+
+    if "z_grid" not in data:
+        grid = np.zeros_like(data["grid"])
+        grid[data["ids"], data["rank"]] = data["z"]
+        data["z_grid"] = grid
+    return data["z_grid"]
+
+
+def _swap_case(card: dict, items, data, vocab, index) -> None:
+    """8.x: ``anomaly_infer_flow`` over ``items`` in ``INFER_CHUNK``-item
+    chunks, one epoch a chunk, with a new threshold armed before the
+    run: one swap at the first close, the rows written before it under
+    the old threshold and every later row under the new, the step's
+    params on the card with the armed digest.  Then one chunk with a
+    mismatched tree: rejected once, the output that of a run with no
+    swap."""
+    import numpy as np
+
+    chunks = [items[i : i + INFER_CHUNK] for i in range(0, len(items), INFER_CHUNK)]
+    run = _infer_run("swap", chunks, {"threshold": np.float32(SWAP_THRESHOLD)})
+    swaps, state = run["swaps"], run["state"]
+    if len(swaps) != 1 or run["counters"].get("params_swap_count", 0) != 1 or run["install"].calls != 1:
+        raise AssertionError(f"swap: {len(swaps)} swap events, {run['install'].calls} installs, want 1")
+    if swaps[0]["digest"] != run["digest"] or state.digest != run["digest"] or state.generation != 1:
+        raise AssertionError(f"swap: {swaps[0]} and the state's {state.digest}, armed {run['digest']}")
+    params = state._params["threshold"]
+    if params.device.type != DEV or float(params) != float(np.float32(SWAP_THRESHOLD)):
+        raise AssertionError(f"swap: the step's threshold is {params} on {params.device}")
+    n_before = run["sink"].rows_before(swaps[0]["t"])
+    if n_before == 0 or n_before >= len(items) or n_before % INFER_CHUNK:
+        raise AssertionError(f"swap: {n_before} rows written before the swap")
+    checked = _check_swapped("swap", run["out"], index, data, n_before)
+    # A mismatched tree, and no swap, over one chunk.
+    rejected = _infer_run("swap_rejected", chunks[:1], {"not_threshold": np.float32(SWAP_THRESHOLD)})
+    plain = _infer_run("no_swap", chunks[:1])
+    if len(rejected["rejected"]) != 1 or rejected["swaps"]:
+        raise AssertionError(f"swap_rejected: {rejected['rejected']}, {len(rejected['swaps'])} swaps")
+    if rejected["out"] != plain["out"] or rejected["state"].generation != 0:
+        raise AssertionError("swap_rejected: the output differs from a run with no swap")
+    _check_scored("no_swap", plain["out"], index, data, slice(0, len(chunks[0])), "zscore")
+    _emit(card, "anomaly", flow="anomaly_infer_flow_swap", rows=len(items), seconds=run["seconds"],
+          rows_per_s=len(items) / run["seconds"], swap_epoch=swaps[0]["epoch"],
+          rows_before_swap=n_before, install_seconds=run["install"].seconds,
+          threshold=[THRESHOLD, SWAP_THRESHOLD], digest=run["digest"], params_device=str(params.device),
+          rejected_rows=len(chunks[0]), rejected_seconds=rejected["seconds"],
+          rejected_events=len(rejected["rejected"]), no_swap_seconds=plain["seconds"],
+          phase_seconds=run["phase_seconds"], **checked)
+
+
+def _running_sum_map():
+    """A scan kind of the user's own, as ``tests/test_torch_scan_user_kind.py``
+    defines it: a per-key running sum with its count, emitting
+    ``(value, running_total)``.  Its ``lift`` builds its count column
+    as a user writes it, with no ``device=``.  Returns a mapper."""
+    import torch
+
+    from bytewax_tpu_torch import xla
+    from bytewax_tpu_torch.ops.scan import ScanKind
+
+    class RunningSumKind(ScanKind):
+        name = "running_sum"
+        fields = {"count": (0, torch.int32), "total": (0.0, torch.float32)}
+
+        def lift(self, values):
+            return torch.ones((values.shape[0],), dtype=torch.int32), values
+
+        def merge(self, a, b):
+            return a[0] + b[0], a[1] + b[1]
+
+        def emit(self, pre, post, values):
+            return (post[1],)
+
+    class RunningSumMap(xla.ScanMap):
+        kind = "running_sum"
+
+        def __call__(self, state, value):
+            count, total = (0, 0.0) if state is None else state
+            return (count + 1, total + value), (value, total + value)
+
+        def device_kind(self):
+            return RunningSumKind()
+
+    return RunningSumMap()
+
+
+def _capped_decay(state, v):
+    """8.z's per-key mapper (``tests/test_torch_scan.py``'s): a total
+    that decays and is capped, and the key's row count."""
+    import torch
+
+    total, n = state
+    total = torch.clamp(total * UDF_DECAY + v, max=UDF_CAP)
+    return (total, n + 1), (total, n + 1)
+
+
+def _scan_map_flow(name: str, source, mapper, sink):
+    import bytewax_tpu_torch.operators as op
+    from bytewax_tpu_torch.dataflow import Dataflow
+
+    flow = Dataflow(name)
+    s = op.input("inp", flow, source)
+    s = op.stateful_map("scan", s, mapper)
+    # The key rides in the value: the truncating sink keeps values.
+    s = op.map("keyed", s, lambda kv: (kv[0], (kv[0], kv[1])))
+    op.output("out", s, sink)
+    return flow
+
+
+def _running_oracle(data, kind: str):
+    """Per (sensor, rank) float64 oracle of 8.y (``running_sum``: the
+    running total and the running sum of |value|) or 8.z
+    (``capped_decay``: the capped total)."""
+    import numpy as np
+
+    grid = data["grid"]  # 0 past each sensor's last row
+    if kind == "running_sum":
+        return np.cumsum(grid, axis=1), np.cumsum(np.abs(grid), axis=1)
+    total = np.zeros(grid.shape[0])
+    out = np.zeros_like(grid)
+    for t in range(grid.shape[1]):
+        total = np.where(data["counts"] > t, np.minimum(total * UDF_DECAY + grid[:, t], UDF_CAP), total)
+        out[:, t] = total
+    return out, None
+
+
+def _check_running(name: str, rows, index, data, n: int, kind: str) -> dict:
+    """8.y's or 8.z's output rows ``(key, (value, *outs))`` against
+    :func:`_running_oracle`: the first ``n`` rows of the data, values
+    exact per key and in order; 8.y's totals within ``TOTAL_RTOL`` of
+    the running sum of |value|, 8.z's within 1e-4 of max(1, |total|)
+    and its counts exact."""
+    import numpy as np
+
+    width = 2 if kind == "running_sum" else 3
+    ids, got = _out_columns(rows, index, width)
+    if len(ids) != n:
+        raise AssertionError(f"{name}: {len(ids)} rows out, {n} in")
+    gk, got = _by_key(ids, got)
+    wk, (rank,) = _by_key(data["ids"][:n].astype(np.int64), [data["rank"][:n]])
+    if not np.array_equal(gk, wk) or not np.array_equal(got[0], data["grid"][wk, rank]):
+        raise AssertionError(f"{name}: values differ from the input per key and order")
+    want, scale = _running_oracle(data, kind)
+    want = want[wk, rank]
+    if kind == "running_sum":
+        diff, scale = np.abs(got[1] - want), scale[wk, rank]
+        # Where every |value| so far is 0, the total must be 0 exactly.
+        err = float(np.where(scale > 0, diff / np.where(scale > 0, scale, 1.0), np.where(diff > 0, np.inf, 0.0)).max())
+        mean_abs = float(np.abs(data["grid"][wk, rank]).mean())
+        res = {"max_total_rel_err": err, "max_total_err_of_mean_abs": float(diff.max()) / mean_abs}
+        if not err <= TOTAL_RTOL:
+            raise AssertionError(f"{name}: a total off by {err} of the running sum of |value|")
+        return res
+    err = float((np.abs(got[1] - want) / np.maximum(1.0, np.abs(want))).max())
+    if not err <= 1e-4:
+        raise AssertionError(f"{name}: a total off by {err} of max(1, |total|)")
+    if not np.array_equal(got[2], rank + 1.0):
+        raise AssertionError(f"{name}: counts differ")
+    return {"max_total_rel_err": err}
+
+
+def _user_scan_run(name: str, flow, db=None, accel: str = "1") -> dict:
+    """One run of 8.y or 8.z, one epoch a batch: the scan state it
+    built, no demotion, the ``segment_scan`` kernel launched no time
+    (the kinds have no ``kernel``), the generic body's and the UDF's
+    calls timed."""
+    from datetime import timedelta
+
+    from bytewax_tpu_torch.engine.scan_accel import DeviceScanState
+    from bytewax_tpu_torch.recovery import RecoveryConfig
+
+    kwargs = {"epoch_interval": timedelta(0)}
+    if db is not None:
+        kwargs["recovery_config"] = RecoveryConfig(str(db))
+    demoted_before = _demotions()
+    states, undo = _recording_device_states()
+    orig = DeviceScanState.scan_rows
+    timer = _Timed(DeviceScanState, "scan_rows")
+    try:
+        with _Knobs(BYTEWAX_TPU_ACCEL=accel, BYTEWAX_TPU_INGEST_TARGET_ROWS="0"):
+            run = _run_flow(flow, **kwargs)
+    finally:
+        undo()
+        DeviceScanState.scan_rows = orig
+    if _demotions() != demoted_before:
+        raise AssertionError(f"{name}: a step demoted to the host tier")
+    if run["scan_launches"]:
+        raise AssertionError(f"{name}: {run['scan_launches']} segment_scan launches; the kind has no kernel")
+    return dict(run, states=states, scan_calls=timer.calls, scan_seconds=timer.seconds)
+
+
+def _on_card_tables(name: str, states) -> list:
+    tables = [t for s in states for t in (s._fields or {}).values()]
+    if len(states) != 1 or not tables or any(t.device.type != DEV for t in tables):
+        raise AssertionError(f"{name}: scan tables on {[t.device for t in tables]}")
+    return sorted({str(t.device) for t in tables})
+
+
+def _body_device_ms(kind, data, n: int, capacity: int = 16384) -> dict:
+    """The device milliseconds of one call of ``kind``'s plain version
+    on a grouped batch of ``n`` of ``data``'s rows (all the kernels it
+    launches, from ``torch.profiler`` as phase 7 reads it), its kernel
+    launches a call, the host's wall ms a call (synchronized) and the
+    bound: its rows' slot, value and output read or written once, each
+    key's table row read and written once."""
+    import numpy as np
+    import torch
+
+    ids, vals = data["ids_b"][0][:n], data["vals_b"][0][:n]
+    order = np.argsort(ids, kind="stable")
+    slots = torch.from_numpy(ids[order]).to(DEV)
+    values = torch.from_numpy(vals[order]).to(DEV)
+    fields = {nm: torch.full((capacity,), init, dtype=dt, device=DEV) for nm, (init, dt) in kind.fields.items()}
+
+    def call():
+        kind.run(fields, slots, values)
+
+    prof = _profiled(call, 2, names=("",))
+    t0 = time.perf_counter()
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    ms = None if prof["ms"] is None else prof["ms"] * prof["launches_per_call"]
+    bytes_moved = 12 * n + 2 * len(np.unique(ids)) * sum(t.itemsize for t in fields.values())
+    return {"device_ms": ms, "kernels_per_call": prof["launches_per_call"], "wall_ms": wall_ms,
+            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def _user_kind_case(card: dict, items, data, vocab, index) -> None:
+    """8.y: a scan kind of the user's own through ``op.stateful_map``
+    on the card over ``USER_SCAN_BATCHES`` batches of phase 8's
+    sensors, one epoch a batch, with a store; aborted there and resumed
+    with ``BYTEWAX_TPU_ACCEL=0`` over a ``USER_SCAN_TAIL``-row tail from
+    the card's snapshots; then the generic body's device time."""
+    import tempfile
+
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+
+    b, n = USER_SCAN_BATCHES, len(items)
+    pairs = list(zip(data["ids_b"], data["vals_b"]))
+    batches = [ArrayBatch({"key_id": i, "value": v}, key_vocab=vocab) for i, v in pairs[:b]]
+    tail_ids, tail_vals = pairs[b][0][:USER_SCAN_TAIL], pairs[b][1][:USER_SCAN_TAIL]
+    batches.append(ArrayBatch({"key_id": tail_ids, "value": tail_vals}, key_vocab=vocab))
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_user_kind_") as tmp:
+        db = _fresh_store(Path(tmp), "store")
+        source = _batch_source(batches, aborts=[b])
+        dev = _user_scan_run("user_kind", _scan_map_flow("user_kind", source, _running_sum_map(),
+                                                         _truncating_sink(rows)), db)
+        devices = _on_card_tables("user_kind", dev["states"])
+        if len(rows) != b * n:
+            raise AssertionError(f"user_kind: {len(rows)} rows before the abort, {b * n} in")
+        host = _user_scan_run("user_kind_resumed", _scan_map_flow("user_kind", source, _running_sum_map(),
+                                                                 _truncating_sink(rows)), db, accel="0")
+    if host["states"]:
+        raise AssertionError("user_kind_resumed: built a device state with the accelerator off")
+    checked = _check_running("user_kind", rows, index, data, b * n + USER_SCAN_TAIL, "running_sum")
+    body = _body_device_ms(_running_sum_map().device_kind(), data, n)
+    _emit(card, "anomaly", flow="user_scan_kind", rows=b * n, seconds=dev["seconds"],
+          rows_per_s=b * n / dev["seconds"], tables_on=devices, scan_launches=dev["scan_launches"],
+          scan_calls=dev["scan_calls"], scan_seconds=dev["scan_seconds"],
+          resumed_rows=USER_SCAN_TAIL, resumed_seconds=host["seconds"],
+          resumed_rows_per_s=USER_SCAN_TAIL / host["seconds"],
+          generic_body={"rows": n, "keys": len(index), **body},
+          phase_seconds=dev["phase_seconds"], **checked)
+
+
+def _udf_case(card: dict, items, data, vocab, index) -> None:
+    """8.z: ``torch_stateful_map`` of the capped-decay mapper on the
+    card over ``USER_SCAN_BATCHES`` batches of phase 8's sensors; then
+    one batch's steps and device time."""
+    import numpy as np
+
+    from bytewax_tpu_torch import xla
+    from bytewax_tpu_torch.engine.arrays import ArrayBatch
+    from bytewax_tpu_torch.models.brc import ArrayBatchSource
+    from bytewax_tpu_torch.ops.scan import TorchUdfScan
+
+    b, n = USER_SCAN_BATCHES, len(items)
+    batches = [ArrayBatch({"key_id": i, "value": v}, key_vocab=vocab)
+               for i, v in list(zip(data["ids_b"], data["vals_b"]))[:b]]
+    rows = []
+    mapper = xla.torch_stateful_map(_capped_decay, (0.0, 0))
+    run = _user_scan_run("torch_stateful_map", _scan_map_flow("udf", ArrayBatchSource(batches), mapper,
+                                                              _truncating_sink(rows)))
+    devices = _on_card_tables("torch_stateful_map", run["states"])
+    checked = _check_running("torch_stateful_map", rows, index, data, b * n, "capped_decay")
+    body = _body_device_ms(TorchUdfScan(_capped_decay, (0.0, 0)), data, n)
+    # One vmap step a row of the batch's longest key run.
+    body["steps"] = int(np.bincount(data["ids_b"][0][:n]).max())
+    _emit(card, "anomaly", flow="torch_stateful_map", rows=b * n, seconds=run["seconds"],
+          rows_per_s=b * n / run["seconds"], tables_on=devices, scan_launches=run["scan_launches"],
+          scan_calls=run["scan_calls"], scan_seconds=run["scan_seconds"],
+          udf_batch={"rows": n, "keys": len(index), **body}, phase_seconds=run["phase_seconds"], **checked)
+
+
 def phase_anomaly(card: dict, n: int, n_keys: int, times: dict) -> dict:
     """Phase 8: the anomaly detector and the other scan flows
     (``times``: phase 7's times of each kernel instance)."""
@@ -2362,6 +2799,14 @@ def phase_anomaly(card: dict, n: int, n_keys: int, times: dict) -> dict:
         run = _scan_flow_case(card, label, flow_of, data, kind,
                               slice(0, n * SCAN_FLOW_BATCHES), index, times[instance]["ms"])
         launches[label] = run["scan_launches"]
+
+    steps = {}
+    t0 = time.perf_counter()
+    for name, case in (("swap", _swap_case), ("user_kind", _user_kind_case), ("udf", _udf_case)):
+        s0 = time.perf_counter()
+        case(card, items, data, vocab, index)
+        steps[name] = time.perf_counter() - s0
+    _emit(card, "anomaly_user_cases", seconds=time.perf_counter() - t0, step_seconds=steps)
     return launches
 
 
