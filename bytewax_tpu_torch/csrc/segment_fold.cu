@@ -57,13 +57,30 @@
 // the ranges.  The host wrapper (ops/fold_kernel.py) checks every
 // argument, passes PyTorch's current stream, and raises on a non-zero
 // return, which is the launch's cudaGetLastError().  Nothing is
-// allocated here.
+// allocated here but the four bytes of host memory that hold a timed
+// launch's stream (below).
+//
+// Timing a launch.  A CUDA event recorded on an idle stream fires at
+// once, while the kernel launched after it is still on its way from
+// the host, so an event pair around a launch times the launch's
+// latency too (16 us with no profiler, about 60 us under CUPTI, against
+// a 27 us fold: PERF.md).  A timed launch therefore holds its stream:
+// it enqueues a wait on a word of mapped host memory
+// (cuStreamWaitValue32), then the start event, the kernel and the end
+// event, and only then writes the word.  The card passes the wait with
+// all three queued, so the pair holds the kernel and the card's own
+// few microseconds around it, not the launch.  The kernel's
+// function is loaded (its shared-memory opt-in) before the hold, and
+// the word is written on every path once the wait is queued.  Where the
+// driver lacks the wait, launches run untimed.
 
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 #include <atomic>
 #include <cmath>
+#include <mutex>
 #include <type_traits>
 
 namespace {
@@ -288,6 +305,86 @@ fold_shared(Fields f, const void* __restrict__ rows, const T* __restrict__ vals,
   }
 }
 
+// The driver's cuStreamWaitValue32 (looked up in the loaded libcuda,
+// so nothing links against the driver) with CU_STREAM_WAIT_VALUE_GEQ:
+// the stream waits until (int32_t)(word - value) >= 0.
+using WaitValue32 = int (*)(cudaStream_t, unsigned long long, unsigned int, unsigned int);
+constexpr unsigned int kWaitGeq = 0;
+
+struct Hold {
+  std::mutex mu;
+  int ready = 0;  // 0 untried, 1 usable, -1 unavailable
+  WaitValue32 wait = nullptr;
+  unsigned int* word = nullptr;  // host side
+  unsigned long long dev_word = 0;
+  unsigned int seq = 0;  // the word's last value
+};
+
+Hold& hold() {
+  static Hold h;
+  return h;
+}
+
+// Under h.mu: set up the wait and its word once; false where the
+// driver or the card offers no wait on mapped host memory.
+bool hold_ready(Hold& h) {
+  if (h.ready != 0) return h.ready > 0;
+  h.ready = -1;
+  void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+  if (lib == nullptr) return false;
+  const auto wait = reinterpret_cast<WaitValue32>(dlsym(lib, "cuStreamWaitValue32_v2"));
+  if (wait == nullptr) return false;
+  void* host = nullptr;
+  if (cudaHostAlloc(&host, sizeof(unsigned int), cudaHostAllocMapped | cudaHostAllocPortable) !=
+      cudaSuccess) {
+    cudaGetLastError();
+    return false;
+  }
+  void* dev = nullptr;
+  if (cudaHostGetDevicePointer(&dev, host, 0) != cudaSuccess) {
+    cudaGetLastError();
+    cudaFreeHost(host);
+    return false;
+  }
+  h.word = static_cast<unsigned int*>(host);
+  __atomic_store_n(h.word, 0u, __ATOMIC_SEQ_CST);
+  h.dev_word = reinterpret_cast<unsigned long long>(dev);
+  h.wait = wait;
+  h.ready = 1;
+  return true;
+}
+
+// A launch's timing events: none (start null), or a pair recorded
+// around the kernel on a held stream; *timed is set to 1 when they were.
+struct Timing {
+  cudaEvent_t start;
+  cudaEvent_t end;
+  int* timed;
+};
+
+// go() on a held stream between t's events (see the top of the file);
+// untimed where the hold is unavailable.  Returns go()'s error or the
+// first event record's.
+template <typename Go>
+cudaError_t held(cudaStream_t stream, const Timing& t, Go&& go) {
+  Hold& h = hold();
+  std::lock_guard<std::mutex> lock(h.mu);
+  if (!hold_ready(h)) return go();
+  const unsigned int seq = h.seq + 1;
+  if (h.wait(stream, h.dev_word, seq, kWaitGeq) != 0) {
+    h.ready = -1;
+    return go();
+  }
+  h.seq = seq;
+  cudaError_t err = cudaEventRecord(t.start, stream);
+  if (err == cudaSuccess) err = go();
+  if (err == cudaSuccess) err = cudaEventRecord(t.end, stream);
+  // Release the stream, whatever failed.
+  __atomic_store_n(h.word, seq, __ATOMIC_SEQ_CST);
+  if (err == cudaSuccess) *t.timed = 1;
+  return err;
+}
+
 // Launch fold_shared<T, kSrc, kQ>.  The first launch on a device lets
 // the kernel take up to kSplitBytes of dynamic shared memory (past
 // 48 KB a kernel must opt in).
@@ -295,7 +392,7 @@ template <typename T, int kSrc, bool kQ>
 cudaError_t launch_shared(const Fields& f, const void* rows, const T* vals, const int* map,
                           long long n_map, float scale, long long n, int width, int span,
                           long long tile_rows, dim3 grid, size_t smem, int device,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, const Timing& timing) {
   static std::atomic<unsigned long long> opted_in{0};
   const unsigned long long bit = device < 64 ? 1ULL << device : 0;
   if ((opted_in.load(std::memory_order_relaxed) & bit) == 0) {
@@ -305,20 +402,23 @@ cudaError_t launch_shared(const Fields& f, const void* rows, const T* vals, cons
     if (err != cudaSuccess) return err;
     opted_in.fetch_or(bit, std::memory_order_relaxed);
   }
-  fold_shared<T, kSrc, kQ><<<grid, kThreads, smem, stream>>>(f, rows, vals, map, n_map, scale, n,
-                                                             width, span, tile_rows);
-  return cudaGetLastError();
+  const auto go = [&]() {
+    fold_shared<T, kSrc, kQ><<<grid, kThreads, smem, stream>>>(f, rows, vals, map, n_map, scale,
+                                                               n, width, span, tile_rows);
+    return cudaGetLastError();
+  };
+  return timing.start == nullptr ? go() : held(stream, timing, go);
 }
 
 template <typename T>
 cudaError_t launch(int source, bool q, const Fields& f, const void* rows, const void* vals,
                    const int* map, long long n_map, float scale, long long n, int width,
                    int span, long long tile_rows, dim3 grid, size_t smem, int device,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const Timing& timing) {
   const T* v = static_cast<const T*>(vals);
 #define BW_LAUNCH(SRC, Q) \
   launch_shared<T, SRC, Q>(f, rows, v, map, n_map, scale, n, width, span, tile_rows, grid, \
-                           smem, device, stream)
+                           smem, device, stream, timing)
   switch (source) {
     case SRC_SLOT: return BW_LAUNCH(SRC_SLOT, false);
     case SRC_EXT16: return BW_LAUNCH(SRC_EXT16, false);
@@ -345,12 +445,18 @@ bool qfold(int source, int acc_int, float scale) {
 // on the current device.  field_codes holds 3 bits per field, field k
 // at bits 3k..3k+2: the op (0 add, 1 min, 2 max) and bit 2 for a count
 // field.  acc_int selects int32 accumulators (and int32 values), else
-// float32.  Returns the launch's cudaError_t (0 on success).
+// float32.  ev_start and ev_end, when not null, are CUDA events to
+// record right around the kernel on a held stream, so that their
+// elapsed time leaves out the launch's latency; *timed (never null) is set to 1
+// if they were recorded, else 0.  Returns the first failing call's
+// cudaError_t (0 on success).
 extern "C" int bw_segment_fold(int source, int acc_int, int n_fields, int field_codes,
                                void* f0, void* f1, void* f2, void* f3,
                                const void* rows, const void* vals, const void* map,
                                long long n_map, float scale, long long n,
-                               long long capacity, void* stream) {
+                               long long capacity, void* stream, void* ev_start,
+                               void* ev_end, int* timed) {
+  *timed = 0;
   if (source < SRC_SLOT || source > SRC_PACKED || n_fields < 1 || n_fields > kMaxFields ||
       n < 0 || capacity < 1 || capacity - 1 > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -391,9 +497,11 @@ extern "C" int bw_segment_fold(int source, int acc_int, int n_fields, int field_
   const int* m = static_cast<const int*>(map);
   const int w = static_cast<int>(width);
   const int sp = static_cast<int>(span);
+  const Timing timing{ev_end == nullptr ? nullptr : static_cast<cudaEvent_t>(ev_start),
+                      static_cast<cudaEvent_t>(ev_end), timed};
   err = acc_int ? launch<int>(source, q, f, rows, vals, m, n_map, scale, n, w, sp, tile, grid,
-                              smem, device, s)
+                              smem, device, s, timing)
                 : launch<float>(source, q, f, rows, vals, m, n_map, scale, n, w, sp, tile,
-                                grid, smem, device, s);
+                                grid, smem, device, s, timing);
   return static_cast<int>(err);
 }

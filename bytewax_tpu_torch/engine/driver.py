@@ -16,7 +16,6 @@ eligible segments of the same plan on the device mesh; both tiers share
 this driver's epoch/recovery bookkeeping.
 """
 
-import contextlib
 import hashlib
 import os
 import pickle
@@ -862,10 +861,7 @@ class _OpRt:
         # queued deliveries (routing, host folds, pipeline submits) is
         # the "host" phase; nested leaf phases (flush stalls, restores,
         # evictions, readbacks) subtract so the sums stay disjoint.
-        rec = _flight.RECORDER
-        rec.phase_push()
-        t0 = time.monotonic()
-        try:
+        with _flight.phase("host", self.op.step_id):
             for port, q in self.queues.items():
                 if q:
                     entries, self.queues[port] = q, []
@@ -884,15 +880,6 @@ class _OpRt:
                             self.process(port, entries)
                     else:
                         self.process(port, entries)
-        finally:
-            gross = time.monotonic() - t0
-            _flight.note_phase(
-                "host",
-                self.op.step_id,
-                max(gross - rec.phase_pop(), 0.0),
-                gross=gross,
-                t0=t0,
-            )
 
     def process(self, port: str, entries: List[Entry]) -> None:
         raise NotImplementedError()
@@ -1209,6 +1196,7 @@ class _InputRt(_OpRt):
         progressed = False
         polled = False
         t0 = time.monotonic()
+        rng = _flight.open_range("ingest")
         try:
             for name in list(self.parts.keys()):
                 part = self.parts[name]
@@ -1312,6 +1300,7 @@ class _InputRt(_OpRt):
                         part_na = now + _EMPTY_COOLDOWN
                 self.next_awake[name] = part_na
         finally:
+            _flight.close_range(rng)
             if polled:
                 _flight.note_phase(
                     "ingest",
@@ -1366,7 +1355,9 @@ class _FlatMapBatchRt(_OpRt):
     def process(self, port: str, entries: List[Entry]) -> None:
         for w, items in entries:
             try:
-                with self._timer("flat_map_batch", w).time():
+                with self._timer("flat_map_batch", w).time(), _flight.span(
+                    "mapper"
+                ):
                     out = self.mapper(items)
                 if not isinstance(out, (list, ArrayBatch)):
                     out = list(out)
@@ -2455,10 +2446,7 @@ class _StatefulBatchRt(_OpRt):
                 # then scan/close synchronously as before.  Host-phase
                 # ledger time (the flush stall inside subtracts as its
                 # own leaf).
-                rec = _flight.RECORDER
-                rec.phase_push()
-                t0 = time.monotonic()
-                try:
+                with _flight.phase("host", self.op.step_id):
                     self.pipeline_flush()
                     try:
                         with self._timer(
@@ -2470,15 +2458,6 @@ class _StatefulBatchRt(_OpRt):
                             self.op.step_id, "the device window fold", ex
                         )
                     self._emit_window_events(events)
-                finally:
-                    gross = time.monotonic() - t0
-                    _flight.note_phase(
-                        "host",
-                        self.op.step_id,
-                        max(gross - rec.phase_pop(), 0.0),
-                        gross=gross,
-                        t0=t0,
-                    )
             return
         due = sorted(
             (key for key, at in self.sched.items() if at <= now)
@@ -3564,29 +3543,13 @@ class _Driver:
             self.rts[ci].queues[port].append(entry)
         self._progressed = True
 
-    @contextlib.contextmanager
-    def _ledger_phase(self, phase: str, step_id: str = "*"):
+    def _ledger_phase(self, phase: str, step_id: str = "*") -> Any:
         """Time one engine phase into the epoch ledger (exclusive of
-        phases nested inside it) — and, when a tracing backend is
-        active, as a nested OTLP span on the existing tracing path."""
-        rec = _flight.RECORDER
-        rec.phase_push()
-        t0 = time.monotonic()
-        try:
-            if self.trace_ops:
-                with _span("epoch_phase", phase=phase):
-                    yield
-            else:
-                yield
-        finally:
-            gross = time.monotonic() - t0
-            _flight.note_phase(
-                phase,
-                step_id,
-                max(gross - rec.phase_pop(), 0.0),
-                gross=gross,
-                t0=t0,
-            )
+        phases nested inside it), as the profiler range
+        ``bytewax.<phase>`` while one records — and, when a tracing
+        backend is active, as a nested OTLP span on the existing
+        tracing path."""
+        return _flight.phase(phase, step_id, otlp=self.trace_ops)
 
     def _close_epoch(self, workers: Optional[range] = None) -> None:
         from bytewax_tpu_torch.tracing import span
@@ -5158,6 +5121,10 @@ class _Driver:
                 shutdown = getattr(rt, "pipeline_shutdown", None)
                 if shutdown is not None:
                     shutdown()
+            # The run's last readbacks (EOF finals, the closing
+            # snapshots) waited on every launch: their device times
+            # resolve now, without blocking.
+            _flight.DEVICE_TIMES.resolve()
             self._ckpt_shutdown()
             if api_server is not None:
                 api_server.shutdown()

@@ -33,7 +33,17 @@ epoch protocol.  It keeps, per process:
   drain-point queue depths.  Sealed records feed ``/status``, the
   epoch-close gsync piggyback, ``bench.py``'s phase fractions, the
   rescale hint, and — with ``BYTEWAX_TPU_TRACE_DIR`` set — a
-  Chrome/Perfetto ``trace_event`` JSON dump per completed epoch.
+  Chrome/Perfetto ``trace_event`` JSON dump per completed epoch;
+- **spans** inside the phases (:class:`span`): always-on
+  ``<name>_seconds`` counters for parts of a phase — the dispatch
+  task's vocabulary work and copies, text decode, user mappers —
+  that never enter the ledger (docs/torch-tracing.md);
+- **device time** of kernel launches (:data:`DEVICE_TIMES`): CUDA
+  event pairs resolved without blocking into ``<name>_device_seconds``.
+
+While a ``torch.profiler`` session records, every ledger phase and
+span is also a range ``bytewax.<name>`` on its own thread, on the
+profiler's clock (:func:`open_range`).
 
 Thread-safety note: counters are GIL-atomic dict updates read racily
 by the API server thread; they are observability data, not an epoch
@@ -42,14 +52,18 @@ protocol, and a torn read is harmless.
 
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
+    "DEVICE_TIMES",
     "RECORDER",
+    "DeviceTimes",
     "FlightRecorder",
+    "close_range",
     "enabled",
     "ledger_fractions",
     "note_autoscale",
@@ -82,6 +96,9 @@ __all__ = [
     "note_transfer",
     "note_unquarantine",
     "note_wire",
+    "open_range",
+    "phase",
+    "span",
     "wire_status",
     "write_postmortem",
 ]
@@ -133,10 +150,6 @@ class FlightRecorder:
         self._ring: deque = deque(maxlen=max(ring_len, 16))
         self.counters: Dict[str, float] = {}
         self._close_s: deque = deque(maxlen=_CLOSE_BUF)
-        #: Residency-restore durations (always on, like _close_s) so
-        #: bench.py reports restore latency percentiles without the
-        #: ring perturbing the measured loops.
-        self._restore_s: deque = deque(maxlen=_CLOSE_BUF)
         self.active = False
         #: proc_id -> latest piggybacked summary (clustered runs).
         self.cluster: Dict[int, Any] = {}
@@ -491,17 +504,6 @@ class FlightRecorder:
         """``(p50_seconds, p99_seconds, n)`` over the recent closes, or
         None before the first recorded close."""
         xs = sorted(self._copied(lambda: list(self._close_s), []))
-        if not xs:
-            return None
-        n = len(xs)
-        return xs[n // 2], xs[min(n - 1, int(n * 0.99))], n
-
-    def restore_percentiles(
-        self,
-    ) -> Optional[Tuple[float, float, int]]:
-        """``(p50_seconds, p99_seconds, n)`` over recent residency
-        restores, or None before the first restore."""
-        xs = sorted(self._copied(lambda: list(self._restore_s), []))
         if not xs:
             return None
         n = len(xs)
@@ -877,7 +879,6 @@ def note_residency_restore(step_id: str, n: int, seconds: float) -> None:
     reinstated on device before a delivery dispatched."""
     RECORDER.count("residency_restore_count", n)
     RECORDER.count("residency_restore_seconds", seconds)
-    RECORDER._restore_s.append(seconds)
     RECORDER.record(
         "restore", step=step_id, keys=n, seconds=round(seconds, 6)
     )
@@ -1188,6 +1189,184 @@ def note_flush_depth(step_id: str, depth: int) -> None:
     cur = RECORDER._flush_depth
     if depth > cur.get(step_id, 0):
         cur[step_id] = depth
+
+
+# -- ranges, spans and phases on the profiler's clock ---------------------
+
+
+def open_range(name: str) -> Any:
+    """Open the range ``bytewax.<name>`` on this thread while a
+    ``torch.profiler`` session records, and return it for
+    :func:`close_range`; None (and nothing recorded) otherwise.
+
+    The range is a function-scope record, never a user annotation, so
+    the profiler draws no mirror of it on the device's timeline: a
+    device trace reads the card's activity alone, and the ranges put
+    every thread's host intervals on the same clock beside it.  Torch
+    is looked up, never imported: no profiler records in a process
+    that has not imported it (the supervisor's, say)."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    if profiler is None or not profiler._is_profiler_enabled:
+        return None
+    fast = getattr(
+        sys.modules.get("torch._C._profiler"), "_RecordFunctionFast", None
+    )
+    if fast is None:  # a torch without the fast record: no range
+        return None
+    rng = fast("bytewax." + name)
+    rng.__enter__()
+    return rng
+
+
+def close_range(rng: Any) -> None:
+    """Close a range :func:`open_range` returned (None is a no-op)."""
+    if rng is not None:
+        rng.__exit__(None, None, None)
+
+
+class span:
+    """A timed part of a phase, on any thread: its seconds add to the
+    always-on counter ``<name>_seconds``, and it is the range
+    ``bytewax.<name>`` while the profiler records.  A span never
+    charges a phase frame and never enters the ledger, its sealed
+    records or the fractions."""
+
+    __slots__ = ("_counter", "_name", "_rng", "_t0")
+
+    def __init__(self, name: str):
+        self._name = name
+        self._counter = name + "_seconds"
+
+    def __enter__(self) -> "span":
+        self._rng = open_range(self._name)
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        dt = time.monotonic() - self._t0
+        close_range(self._rng)
+        RECORDER.count(self._counter, dt)
+        return False
+
+
+class phase:
+    """One main-thread epoch-ledger phase: its *exclusive* seconds go
+    to :func:`note_phase` (looked up on this module when it ends),
+    the gross interval to the enclosing phase frame, and the interval
+    is the range ``bytewax.<name>`` while the profiler records.  With
+    ``otlp`` it is also an ``epoch_phase`` tracing span."""
+
+    __slots__ = ("_name", "_otlp", "_rec", "_rng", "_step_id", "_t0", "_trace")
+
+    def __init__(self, name: str, step_id: str = "*", otlp: bool = False):
+        self._name = name
+        self._step_id = step_id
+        self._trace = otlp
+        self._otlp: Any = None
+
+    def __enter__(self) -> "phase":
+        self._rec = RECORDER
+        self._rec.phase_push()
+        self._rng = open_range(self._name)
+        if self._trace:
+            from bytewax_tpu_torch.tracing import span as otlp_span
+
+            self._otlp = otlp_span("epoch_phase", phase=self._name)
+            self._otlp.__enter__()
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        try:
+            if self._otlp is not None:
+                self._otlp.__exit__(*exc)
+        finally:
+            gross = time.monotonic() - self._t0
+            close_range(self._rng)
+            note_phase(
+                self._name,
+                self._step_id,
+                max(gross - self._rec.phase_pop(), 0.0),
+                gross=gross,
+                t0=self._t0,
+            )
+        return False
+
+
+# -- device time of kernel launches ----------------------------------------
+
+#: Pending event pairs past which :meth:`DeviceTimes.note` resolves
+#: on its own (a tier without drain points still stays bounded).
+_DEVICE_PENDING_CAP = 4096
+
+
+class DeviceTimes:
+    """Device seconds of kernel launches, from CUDA event pairs.
+
+    A launch site takes a pair for its device (:meth:`pair`), records
+    one event on each side of the launch on its stream, and hands the
+    pair over (:meth:`note`) from whatever thread launched.
+    :meth:`resolve` pops the oldest pairs whose end event has
+    completed — it asks ``query()`` and never waits — adds their
+    elapsed time to the counter ``<name>_device_seconds``, and keeps
+    the events for reuse on their device.  The engine resolves at the
+    dispatch pipeline's drain points and at the end of a run, after
+    the readbacks that end it; nothing here synchronizes the device."""
+
+    def __init__(self) -> None:
+        #: (name, device, start, end) in launch order; appended from
+        #: any thread, popped under ``_lock``.
+        self._pending: deque = deque()
+        #: device -> resolved pairs for reuse (events belong to the
+        #: device they were made on).
+        self._free: Dict[Any, List[Tuple[Any, Any]]] = {}
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._pending)
+
+    def pair(self, device: Any, make: Any) -> Tuple[Any, Any]:
+        """A resolved pair of ``device`` for reuse, or two new events
+        from ``make()``."""
+        try:
+            return self._free[device].pop()
+        except (KeyError, IndexError):
+            return make(), make()
+
+    def note(self, name: str, device: Any, start: Any, end: Any) -> None:
+        """One launch on ``device`` between the recorded events
+        ``start`` and ``end``, to be resolved into
+        ``<name>_device_seconds``."""
+        self._pending.append((name, device, start, end))
+        if len(self._pending) >= _DEVICE_PENDING_CAP:
+            self.resolve()
+
+    def resolve(self) -> int:
+        """Resolve every completed pair at the head of the queue;
+        returns how many.  A resolve already running on another
+        thread makes this one a no-op."""
+        if not self._lock.acquire(blocking=False):
+            return 0
+        done = 0
+        try:
+            pending = self._pending
+            while pending:
+                name, device, start, end = pending[0]
+                if not end.query():
+                    break
+                pending.popleft()
+                RECORDER.count(
+                    name + "_device_seconds",
+                    start.elapsed_time(end) * 1e-3,
+                )
+                self._free.setdefault(device, []).append((start, end))
+                done += 1
+        finally:
+            self._lock.release()
+        return done
+
+
+DEVICE_TIMES = DeviceTimes()
 
 
 #: Ledger phases folded into each reported fraction bucket.

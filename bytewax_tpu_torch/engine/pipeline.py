@@ -156,7 +156,7 @@ class DevicePipeline:
         multi-entry deliveries that push several phases."""
         if self.depth <= 1:
             t0 = time.monotonic()
-            result = task()
+            result = self._run(task)
             dur = time.monotonic() - t0
             # Inline (lock-step) mode folds ON the main thread: lane 0,
             # so the seconds charge the enclosing host frame instead of
@@ -168,18 +168,27 @@ class DevicePipeline:
             _flight.note_source_lag(
                 self.step_id, "processing", time.monotonic() - t0
             )
+            _flight.DEVICE_TIMES.resolve()
             return
         self.make_room()
         fut = self._ensure_pool().submit(self._timed, task)
         self._pending.append((fut, finalize, time.monotonic()))
 
-    @staticmethod
-    def _timed(task: Callable[[], Any]) -> Tuple[float, float, Any]:
+    def _run(self, task: Callable[[], Any]) -> Any:
+        """Run one task as the profiler range of this lane's phase
+        (``bytewax.device`` for the dispatch pipeline)."""
+        rng = _flight.open_range(self.phase)
+        try:
+            return task()
+        finally:
+            _flight.close_range(rng)
+
+    def _timed(self, task: Callable[[], Any]) -> Tuple[float, float, Any]:
         """Worker-side wrapper: stamp the device phase's wall
         interval so the ledger's ``device`` lane is recorded (on the
         main thread, at finalize) with the worker's real timing."""
         t0 = time.monotonic()
-        result = task()
+        result = self._run(task)
         return t0, time.monotonic() - t0, result
 
     #: ``make_room()`` + append, under one name for direct callers.
@@ -189,13 +198,16 @@ class DevicePipeline:
 
     def _finalize_oldest(self) -> None:
         fut, finalize, t_submit = self._pending.popleft()
+        device = self.phase == "device"
         t0 = time.monotonic()
+        rng = _flight.open_range("flush") if device else None
         try:
             dev_t0, dev_dur, result = fut.result()
         finally:
+            _flight.close_range(rng)
             stalled = time.monotonic() - t0
             if stalled > 0.0005:
-                if self.phase == "device":
+                if device:
                     _flight.note_pipeline_stall(self.step_id, stalled)
                 elif self.phase == "snapshot_lane":
                     # Checkpoint-fence waits are durability pressure
@@ -223,9 +235,13 @@ class DevicePipeline:
             self.phase, self.step_id, dev_dur, t0=dev_t0, lane=1
         )
         tf = time.monotonic()
-        finalize(result)
+        rng = _flight.open_range("readback") if device else None
+        try:
+            finalize(result)
+        finally:
+            _flight.close_range(rng)
         now = time.monotonic()
-        if self.phase == "device":
+        if device:
             _flight.note_phase(
                 "readback", self.step_id, now - tf, t0=tf
             )
@@ -234,6 +250,9 @@ class DevicePipeline:
         _flight.note_source_lag(
             self.step_id, "processing", now - t_submit
         )
+        # A drain point on the main thread: launches whose events
+        # completed meanwhile resolve into their device seconds.
+        _flight.DEVICE_TIMES.resolve()
 
     def finalize_ready(self) -> None:
         """Finalize completed tasks without blocking on running ones —

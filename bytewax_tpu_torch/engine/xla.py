@@ -156,9 +156,11 @@ class DeviceAggState:
     def _to_device(self, arr: np.ndarray, dtype) -> torch.Tensor:
         """Copy a host array to the device in exactly ``dtype``.  A
         blocking copy of a private host buffer: the caller may reuse
-        ``arr`` as soon as this returns."""
-        host = np.require(arr, dtype=dtype, requirements=("C", "W"))
-        return torch.from_numpy(host).to(self.device)
+        ``arr`` as soon as this returns.  The flight recorder's span
+        ``dispatch_copy``."""
+        with _flight.span("dispatch_copy"):
+            host = np.require(arr, dtype=dtype, requirements=("C", "W"))
+            return torch.from_numpy(host).to(self.device)
 
     # -- slot management ---------------------------------------------------
 
@@ -321,7 +323,8 @@ class DeviceAggState:
         vals = np.empty(n, dtype=np.float64)
         ivals = np.empty(n, dtype=np.int64)
         try:
-            res = _kv_encode(items, self._iddict, ids, vals, ivals)
+            with _flight.span("dispatch_vocab"):
+                res = _kv_encode(items, self._iddict, ids, vals, ivals)
         except TypeError as ex:
             raise NonNumericValues(str(ex)) from ex
         if res is None:
@@ -356,10 +359,11 @@ class DeviceAggState:
             )
         self._ensure_fields()
         self._scatter(self._id_to_slot[ids], vals)
-        counts = np.bincount(ids, minlength=len(self._id_keys))
-        return [
-            self._id_keys[i] for i in np.nonzero(counts)[0].tolist()
-        ]
+        with _flight.span("dispatch_vocab"):
+            counts = np.bincount(ids, minlength=len(self._id_keys))
+            return [
+                self._id_keys[i] for i in np.nonzero(counts)[0].tolist()
+            ]
 
     def update(self, keys: np.ndarray, values: np.ndarray) -> List[str]:
         """Fold ``(key, value)`` rows in; returns the unique keys
@@ -373,14 +377,16 @@ class DeviceAggState:
             )
             raise NonNumericValues(msg)
         values = self._pick_dtype(values)
-        row_slots = self._enc.encode(
-            keys, lambda ks: [self.alloc(k) for k in ks]
-        )
+        with _flight.span("dispatch_vocab"):
+            row_slots = self._enc.encode(
+                keys, lambda ks: [self.alloc(k) for k in ks]
+            )
         self._ensure_fields()
         self._scatter(row_slots, values)
-        return [
-            self.slot_keys[s] for s in np.unique(row_slots).tolist()
-        ]
+        with _flight.span("dispatch_vocab"):
+            return [
+                self.slot_keys[s] for s in np.unique(row_slots).tolist()
+            ]
 
     def _scatter(self, slot_ids: np.ndarray, values: np.ndarray) -> None:
         slots = self._to_device(slot_ids, np.int32)
@@ -409,8 +415,9 @@ class DeviceAggState:
             # alloc reuses a recovery-resumed slot if one exists.
             return [self.alloc(key) for key in keys]
 
-        origin, vmap, fresh = self._vocab.of(vocab)
-        uniq = vmap.sync(ids, vocab, alloc_many)
+        with _flight.span("dispatch_vocab"):
+            origin, vmap, fresh = self._vocab.of(vocab)
+            uniq = vmap.sync(ids, vocab, alloc_many)
         dev_map = self._dev_maps.get(origin)
         if had_new or fresh or dev_map is None:
             # Rebuild the device table: unseen ids and the sentinel
@@ -451,9 +458,10 @@ class DeviceAggState:
             sentinel = len(vmap.table)
             if quantized and sentinel < 2**15:
                 # Fixed-point fast path: one int16 [2, n] transfer.
-                packed = np.empty((2, n), dtype=np.int16)
-                packed[0] = ids
-                packed[1] = values
+                with _flight.span("dispatch_copy"):
+                    packed = np.empty((2, n), dtype=np.int16)
+                    packed[0] = ids
+                    packed[1] = values
                 dev_packed = self._to_device(packed, np.int16)
                 _flight.note_transfer("h2d", dev_packed.nbytes)
                 update_fields_packed(
@@ -477,7 +485,8 @@ class DeviceAggState:
                 update_fields_vocab(
                     self.kind, self._fields, dev_map, dev_ids, dev_vals
                 )
-            return [str(vmap.vocab[e]) for e in uniq.tolist()]
+            with _flight.span("dispatch_vocab"):
+                return [str(vmap.vocab[e]) for e in uniq.tolist()]
         if "key" in batch.cols:
             values = batch.numpy("value")
             if batch.value_scale is not None:

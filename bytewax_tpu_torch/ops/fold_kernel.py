@@ -11,9 +11,17 @@ built when this module is imported.
 :func:`fold` is the only way in: it checks device, dtype, contiguity
 and shape, launches on PyTorch's current stream (the kernel sizes its
 own grid), raises if the launch fails, and counts launches in
-:data:`launches`.  There is no fallback:
-the CPU path is the plain version in :mod:`bytewax_tpu_torch.ops.segment`,
-which the entry points there pick only for CPU tensors.
+:data:`launches`.  The launch is the profiler range ``bytewax.fold``
+while a ``torch.profiler`` session records, and the launcher records
+two CUDA timing events right around the kernel on a stream it holds
+until both and the kernel are queued, so that their elapsed time
+leaves out the launch's latency; it resolves later, without blocking,
+into the counter ``fold_device_seconds``
+(:data:`~bytewax_tpu_torch.engine.flight.DEVICE_TIMES`; not inside a
+CUDA graph capture, nor where the driver cannot hold a stream).
+There is no fallback: the CPU path is the plain version in
+:mod:`bytewax_tpu_torch.ops.segment`, which the entry points there
+pick only for CPU tensors.
 """
 
 import ctypes
@@ -22,6 +30,7 @@ from typing import Dict, Optional
 
 import torch
 
+from bytewax_tpu_torch.engine import flight as _flight
 from bytewax_tpu_torch.ops import cuda_build
 
 __all__ = [
@@ -50,6 +59,8 @@ build_log = ""
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+#: Set once the launcher found it cannot hold a stream: no events then.
+_untimed = False
 
 
 def build() -> ctypes.CDLL:
@@ -77,10 +88,22 @@ def build() -> ctypes.CDLL:
             ctypes.c_longlong,  # n
             ctypes.c_longlong,  # capacity
             ctypes.c_void_p,  # stream
+            ctypes.c_void_p,  # ev_start
+            ctypes.c_void_p,  # ev_end
+            ctypes.POINTER(ctypes.c_int),  # timed
         ]
         fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def _timing_event() -> torch.cuda.Event:
+    """A timing event, made on the current device at once (torch makes
+    an event at its first record) so the launcher can record its
+    handle."""
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
 
 
 def _require(ok: bool, what: str) -> None:
@@ -131,7 +154,7 @@ def fold(
     ``[2, n]`` int16 packed batch (``SRC_PACKED``, with
     ``ext_to_slot`` and ``scale``; ``vals`` is None).  ``vals`` has
     the state's dtype."""
-    global launches
+    global launches, _untimed
     names = list(kind.fields)
     _require(1 <= len(names) <= _MAX_FIELDS, f"{len(names)} fields")
     first = state[names[0]]
@@ -173,25 +196,41 @@ def fold(
     acc_int = 1 if acc == torch.int32 else 0
     ptrs = [state[name].data_ptr() for name in names]
     ptrs += [None] * (_MAX_FIELDS - len(ptrs))
-    with torch.cuda.device(idx):
-        err = lib.bw_segment_fold(
-            source,
-            acc_int,
-            len(names),
-            codes,
-            *ptrs,
-            rows.data_ptr(),
-            None if vals is None else vals.data_ptr(),
-            map_ptr,
-            n_map,
-            float(scale),
-            n,
-            capacity,
-            torch._C._cuda_getCurrentRawStream(idx),
-        )
+    times = _flight.DEVICE_TIMES
+    timed = ctypes.c_int(0)
+    rng = _flight.open_range("fold")
+    try:
+        with torch.cuda.device(idx):
+            events = None, None
+            if not _untimed and not torch.cuda.is_current_stream_capturing():
+                events = times.pair(idx, _timing_event)
+            err = lib.bw_segment_fold(
+                source,
+                acc_int,
+                len(names),
+                codes,
+                *ptrs,
+                rows.data_ptr(),
+                None if vals is None else vals.data_ptr(),
+                map_ptr,
+                n_map,
+                float(scale),
+                n,
+                capacity,
+                torch._C._cuda_getCurrentRawStream(idx),
+                *(None if e is None else e.cuda_event for e in events),
+                ctypes.byref(timed),
+            )
+    finally:
+        _flight.close_range(rng)
     if err != 0:
         msg = f"segment-fold kernel launch failed: CUDA error {err}"
         raise RuntimeError(msg)
+    if timed.value:
+        times.note("fold", idx, *events)
+    elif events[0] is not None:
+        # The driver cannot hold a stream: launch untimed from now on.
+        _untimed = True
     with _lock:
         launches += 1
 

@@ -13,6 +13,7 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
+from bytewax_tpu_torch.engine import flight as _flight
 from bytewax_tpu_torch.engine.arrays import ArrayBatch
 
 __all__ = [
@@ -78,7 +79,8 @@ def _gather_pad_device(
 ) -> np.ndarray:
     """:func:`_gather_pad` on the device.  uint32 code units travel as
     int32 (every code point is below 2^31): torch indexes int32 and
-    uint8 tensors on every device."""
+    uint8 tensors on every device.  The copies both ways count in the
+    flight recorder's transfer bytes."""
     import torch
 
     from bytewax_tpu_torch.utils import device
@@ -93,7 +95,12 @@ def _gather_pad_device(
     mask = offs[None, :] < t_lens[:, None]
     zero = torch.zeros((), dtype=t_buf.dtype, device=dev)
     mat = torch.where(mask, t_buf[idx], zero)
-    return mat.cpu().numpy().view(buf.dtype)
+    _flight.note_transfer(
+        "h2d", t_buf.nbytes + t_starts.nbytes + t_lens.nbytes
+    )
+    host = mat.cpu().numpy()
+    _flight.note_transfer("d2h", host.nbytes)
+    return host.view(buf.dtype)
 
 
 def _split_units(buf: np.ndarray, kind: str) -> np.ndarray:
@@ -155,14 +162,17 @@ def split_lines(
     >>> from bytewax_tpu_torch.ops.text import split_lines
     >>> split_lines(b"one\\ntwo\\n").tolist()
     ['one', 'two']
+
+    The decode is the flight recorder's span ``decode``.
     """
     if not body:
         return np.empty(0, dtype="U1")
-    if encoding is None:
-        return _split_units(np.frombuffer(body, np.uint8), "S")
-    text = body.decode(encoding)
-    buf = np.frombuffer(text.encode("utf-32-le"), np.uint32)
-    return _split_units(buf, "U")
+    with _flight.span("decode"):
+        if encoding is None:
+            return _split_units(np.frombuffer(body, np.uint8), "S")
+        text = body.decode(encoding)
+        buf = np.frombuffer(text.encode("utf-32-le"), np.uint32)
+        return _split_units(buf, "U")
 
 
 class LineBatcher:

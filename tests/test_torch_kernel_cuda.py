@@ -203,6 +203,62 @@ def test_slot_rows_at_window_capacities(dev, integer, capacity):
             _same(got[name], want[name], f"reuse/{kind_name}/{name}")
 
 
+@pytest.mark.cuda
+def test_fold_times_its_launches_by_events_off_the_device_timeline(dev):
+    # Each launch lies between two CUDA timing events that resolve,
+    # once complete and never waited for, into fold_device_seconds;
+    # the launcher holds the stream until both and the kernel are
+    # queued, so a pair holds the kernel and a few microseconds of the
+    # card's own, not the launch's latency (about 60 us under the
+    # profiler).  Its range bytewax.fold is a host record with no
+    # device mirror and no counter of its own, and no synchronize runs
+    # inside it.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bytewax_tpu_torch.engine import flight
+    from bytewax_tpu_torch.ops import fold_kernel
+
+    capacity = 16384
+    kind = seg.AGG_KINDS["stats"]
+    inp = _on(dev, _inputs(capacity, False))
+    state = seg.init_fields(kind, capacity, torch.float32, dev)
+    times = flight.DEVICE_TIMES
+    torch.cuda.synchronize()
+    times.resolve()
+    assert len(times) == 0
+    counters = flight.RECORDER.counters
+    before = counters.get("fold_device_seconds", 0.0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            _kernel_fold("packed", kind, state, inp, SCALE)
+        torch.cuda.synchronize()
+    assert len(times) == 8
+    assert times.resolve() == 8
+    event_s = counters["fold_device_seconds"] - before
+    events = list(prof.events())
+    assert not [e.name for e in events if e.device_type == DeviceType.CUDA and e.name.startswith("bytewax.")]
+    ranges = [e for e in events if e.name == "bytewax.fold"]
+    assert len(ranges) == 8
+    assert all(e.device_type == DeviceType.CPU and not e.is_user_annotation for e in ranges)
+    inside = [
+        e.name
+        for e in events
+        if "ynchronize" in e.name
+        and any(r.time_range.start <= e.time_range.start <= r.time_range.end for r in ranges)
+    ]
+    assert not inside, inside
+    kernel_s = 1e-6 * sum(
+        e.time_range.end - e.time_range.start
+        for e in events
+        if e.device_type == DeviceType.CUDA and "fold" in e.name
+    )
+    assert kernel_s > 0
+    assert not fold_kernel._untimed
+    assert 0.95 * kernel_s <= event_s <= kernel_s + 8 * 20e-6, (event_s, kernel_s)
+    assert "fold_seconds" not in counters
+
+
 # -- the segmented-scan kernel (csrc/segment_scan.cu) ------------------------
 #
 # Each built-in kind's kernel instance against its plain version on the
