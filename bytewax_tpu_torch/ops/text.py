@@ -268,42 +268,134 @@ class LineBatcher:
         return ArrayBatch({"line": self._split(body)})
 
 
+def _zero_spans(mat: np.ndarray, lo: np.ndarray, hi: np.ndarray) -> None:
+    """Zero ``mat[i, lo[i]:hi[i]]`` of each row in place, touching only
+    those cells (a ragged scatter, not a full-width mask)."""
+    span = hi - lo
+    top = int(span.max()) if len(span) else 0
+    if top <= 0:
+        return
+    offs = np.arange(top)
+    flat = (lo + np.arange(len(mat)) * mat.shape[1])[:, None] + offs
+    mat.reshape(-1)[flat[offs < span[:, None]]] = 0
+
+
+def _unit_code(lines: np.ndarray, delim: Any) -> Optional[int]:
+    """The delimiter's one code unit where the matrix split applies: a
+    native-endian array and a delimiter of its own flavor that is a
+    single nonzero code unit (NUL is also the padding).  ``None``
+    otherwise."""
+    own = str if lines.dtype.kind == "U" else bytes
+    if not lines.dtype.isnative or not isinstance(delim, own) or len(delim) != 1:
+        return None
+    code = ord(delim)
+    return code or None
+
+
+def _split_matrix(
+    lines: np.ndarray, n_fields: int, code: int
+) -> Optional[List[np.ndarray]]:
+    """:func:`split_fields` over the ``[n, width]`` code-unit matrix of a
+    contiguous native-endian line array (uint32 for ``U``, uint8 for
+    ``S``), on a delimiter of one nonzero code unit ``code``.
+
+    The k-th delimiter of every row is the first hit left after the
+    k-1 before it are cleared; a row short of hits, or a hit left over
+    after the last, refuses the batch.  Each column is then the masked
+    window of its field, as wide as its longest field (at least 1),
+    viewed back as ``U``/``S``: zeros past a field's end, so the items
+    are the strings ``np.char.partition`` gives."""
+    kind = lines.dtype.kind
+    unit = np.uint32 if kind == "U" else np.uint8
+    n = len(lines)
+    width = lines.dtype.itemsize // np.dtype(unit).itemsize
+    mat = lines.view(unit).reshape(n, width)
+    hits = mat == code
+    rows = np.arange(n)
+    cuts = []
+    for _ in range(n_fields - 1):
+        at = hits.argmax(axis=1)
+        if not hits[rows, at].all():
+            return None
+        hits[rows, at] = False
+        cuts.append(at)
+    if hits.any():
+        return None
+    ends = np.char.str_len(lines)
+    starts = [np.zeros(n, dtype=np.intp)] + [c + 1 for c in cuts]
+    stops = cuts + [ends]
+    cols: List[np.ndarray] = []
+    for i, (lo, hi) in enumerate(zip(starts, stops)):
+        lens = hi - lo
+        w = max(int(lens.max()), 1)
+        if i == 0:
+            # Field 0 is a prefix: copy the first w units and zero only
+            # what the row holds past the field (the delimiter and the
+            # other fields), not every padding unit.
+            col = mat[:, :w].copy()
+            _zero_spans(col, lens, np.minimum(ends, w))
+        else:
+            # A window that runs past its row reads the next one; those
+            # units lie past the field's end and are zeroed with it.
+            offs = np.arange(w)
+            flat = (lo + rows * width)[:, None] + offs
+            np.minimum(flat, mat.size - 1, out=flat)
+            col = mat.reshape(-1).take(flat)
+            col[offs >= lens[:, None]] = 0
+        cols.append(col.view(f"{kind}{w}").ravel())
+    return cols
+
+
 def split_fields(
     lines: np.ndarray, n_fields: int, delimiter: str = ","
 ) -> Optional[List[np.ndarray]]:
-    """Split a ``U``-dtype line array into exactly ``n_fields`` field
-    columns with O(fields) vectorized passes (``np.char.partition``
-    per field).  Returns ``None`` when any row has the wrong
-    delimiter count — the caller falls back to a real CSV parser for
-    that batch (quoting, ragged rows).
+    """Split a ``U``- or ``S``-dtype line array into exactly
+    ``n_fields`` field columns with no per-row Python.  Returns
+    ``None`` when any row has the wrong delimiter count — the caller
+    falls back to a real CSV parser for that batch (quoting, ragged
+    rows).
+
+    A delimiter of one code unit (other than NUL) on a native-endian
+    array splits over the array's code-unit matrix; each column is as
+    wide as its longest field.  Any other delimiter or byte order takes
+    ``np.char.partition``, one call per field.  The flight recorder
+    counts the rows each path split (``split_fields_rows``,
+    ``split_fields_fallback_rows``); a refused batch counts in neither.
 
     >>> import numpy as np
     >>> from bytewax_tpu_torch.ops.text import split_fields
     >>> [c.tolist() for c in split_fields(np.array(["a,1", "b,2"]), 2)]
     [['a', 'b'], ['1', '2']]
     """
-    if lines.dtype.kind not in "US":
+    if lines.dtype.kind not in "US" or n_fields < 1:
         # Ragged chunks degrade to object-dtype line arrays (see
-        # _split_units); np.char needs fixed-width strings, so those
+        # _split_units); only fixed-width strings split here, so those
         # batches take the caller's fallback parser.
         return None
+    if not len(lines):
+        return [np.empty(0, dtype=f"{lines.dtype.kind}1") for _ in range(n_fields)]
     delim: Any = delimiter
     if lines.dtype.kind == "S" and isinstance(delimiter, str):
-        # Raw byte lines (split_lines with encoding=None): np.char
-        # needs the operand in the array's own flavor.
+        # Raw byte lines (split_lines with encoding=None): the
+        # delimiter is matched in the array's own flavor.
         delim = delimiter.encode("ascii")
+    code = _unit_code(lines, delim)
+    if code is not None:
+        cols = _split_matrix(np.ascontiguousarray(lines), n_fields, code)
+        if cols is not None:
+            _flight.RECORDER.count("split_fields_rows", len(lines))
+        return cols
     counts = np.char.count(lines, delim)
-    if len(counts) and (
-        counts.min() != n_fields - 1 or counts.max() != n_fields - 1
-    ):
+    if counts.min() != n_fields - 1 or counts.max() != n_fields - 1:
         return None
-    cols: List[np.ndarray] = []
+    cols = []
     rest = lines
     for _ in range(n_fields - 1):
         parts = np.char.partition(rest, delim)
         cols.append(np.ascontiguousarray(parts[:, 0]))
         rest = np.ascontiguousarray(parts[:, 2])
     cols.append(rest)
+    _flight.RECORDER.count("split_fields_fallback_rows", len(lines))
     return cols
 
 

@@ -117,22 +117,142 @@ def test_line_batcher_matches_reference(on_error):
     assert (outs[1] == "UnicodeDecodeError") == (on_error == "raise")
 
 
-@pytest.mark.parametrize("raw", [False, True], ids=["text", "bytes"])
-@pytest.mark.parametrize("n_fields", [2, 3])
-def test_split_fields_matches_reference(n_fields, raw):
+def _random_rows(n_fields: int) -> list:
     rng = np.random.RandomState(n_fields)
-    rows = [
+    return [
         ";".join(f"f{j}{rng.randint(1000)}" for j in range(n_fields))
         for _ in range(200)
     ]
-    lines = np.array([r.encode() for r in rows]) if raw else np.array(rows)
+
+
+def _brc_rows() -> list:
+    """1BRC-shaped rows: names of 1 to 100 code points (non-ASCII
+    among them), an empty key, an empty value, interior NULs, and one
+    row as wide as the array."""
+    rng = np.random.RandomState(7)
+    alphabet = list("abcdefghijklmnopqrstuvwxyz -'") + ["é", "ß", "水", "ø"]
+    rows = []
+    for width in list(range(1, 101)) + list(rng.randint(1, 40, size=300)):
+        name = "".join(rng.choice(alphabet, size=int(width)))
+        rows.append(f"{name};{rng.randint(-999, 1000) / 10:.1f}")
+    rows += [";1.0", "a;", "a\x00b;2.5", "nul\x00;0.1", "x;\x00-3.0"]
+    rows.append("W" * 100 + ";-99.9")  # the widest row sets the width
+    return rows
+
+
+def _lines(rows: list, raw: bool) -> np.ndarray:
+    return np.array([r.encode() for r in rows]) if raw else np.array(rows)
+
+
+# (id, rows, n_fields, delimiter, raw); the first four ids are the
+# original cases of random rows.
+_SPLIT_CASES = [
+    ("text-2", _random_rows(2), 2, ";", False),
+    ("text-3", _random_rows(3), 3, ";", False),
+    ("bytes-2", _random_rows(2), 2, ";", True),
+    ("bytes-3", _random_rows(3), 3, ";", True),
+    ("text-4", _random_rows(4), 4, ";", False),
+    ("bytes-4", _random_rows(4), 4, ";", True),
+    ("brc-text", _brc_rows(), 2, ";", False),
+    ("brc-bytes", _brc_rows(), 2, ";", True),
+    ("brc-3-fields", [r + ";" + r[:3] for r in _brc_rows()], 3, ";", False),
+    ("two-char-text", [r.replace(";", "::") for r in _brc_rows()], 2, "::", False),
+    ("two-char-bytes", [r.replace(";", "::") for r in _random_rows(3)], 3, "::", True),
+    ("wrong-count", _brc_rows() + ["a;b;1.0"], 2, ";", False),
+    ("none-of-it", ["a", "b"], 2, ";", True),
+    ("one-field", ["abc", "", "x\x00y"], 1, ";", False),
+]
+
+
+@pytest.mark.parametrize(
+    "rows,n_fields,delimiter,raw",
+    [pytest.param(*c[1:], id=c[0]) for c in _SPLIT_CASES],
+)
+def test_split_fields_matches_reference(rows, n_fields, delimiter, raw):
+    lines = _lines(rows, raw)
+    got = port_text.split_fields(lines, n_fields, delimiter)
+    want = ref_text.split_fields(lines, n_fields, delimiter)
+    assert (got is None) == (want is None)
+    if want is not None:
+        assert [c.dtype.kind for c in got] == [c.dtype.kind for c in want]
+        assert [c.tolist() for c in got] == [c.tolist() for c in want]
+    # A row with the wrong delimiter count: both hand the batch back.
+    extra = delimiter + "x"
+    bad = np.concatenate([lines, lines[:1] + (extra.encode() if raw else extra)])
+    assert port_text.split_fields(bad, n_fields, delimiter) is None
+    assert ref_text.split_fields(bad, n_fields, delimiter) is None
+
+
+@pytest.mark.parametrize("n_fields", [2, 3])
+@pytest.mark.parametrize("dtype", ["U8", "S8", ">U8"])
+def test_split_fields_empty_and_foreign_arrays(dtype, n_fields):
+    """An empty array splits into empty columns (the JAX package's
+    ``np.char.partition`` path raises ``IndexError`` there); an object
+    array is refused by both; a big-endian array takes the fallback and
+    gives the reference's values."""
+    empty = np.empty(0, dtype=dtype)
+    got = port_text.split_fields(empty, n_fields, ";")
+    assert [c.tolist() for c in got] == [[]] * n_fields
+    assert [c.dtype.kind for c in got] == [empty.dtype.kind] * n_fields
+    with pytest.raises(IndexError):
+        ref_text.split_fields(empty, n_fields, ";")
+    rows = [r + ";z" * (n_fields - 2) for r in ["ab;1.5", "é;", ";-2.0"]]
+    objs = np.array(rows, dtype=object)
+    assert port_text.split_fields(objs, n_fields, ";") is None
+    assert ref_text.split_fields(objs, n_fields, ";") is None
+    lines = np.array([r.encode() for r in rows] if dtype[0] == "S" else rows, dtype=dtype)
     got = port_text.split_fields(lines, n_fields, ";")
     want = ref_text.split_fields(lines, n_fields, ";")
     assert [c.tolist() for c in got] == [c.tolist() for c in want]
-    # A row with the wrong delimiter count: both hand the batch back.
-    bad = np.concatenate([lines, lines[:1] + (b";x" if raw else ";x")])
-    assert port_text.split_fields(bad, n_fields, ";") is None
-    assert ref_text.split_fields(bad, n_fields, ";") is None
+
+
+@pytest.mark.parametrize(
+    "rows,n_fields,delimiter,raw",
+    [pytest.param(*c[1:], id=c[0]) for c in _SPLIT_CASES],
+)
+def test_split_fields_columns_no_wider_than_partition(rows, n_fields, delimiter, raw):
+    """No column is wider than ``np.char.partition`` makes it, so the
+    dispatch worker's key encode sees no wider key array."""
+    lines = _lines(rows, raw)
+    got = port_text.split_fields(lines, n_fields, delimiter)
+    if got is None:
+        return
+    rest = lines
+    for col in got[:-1]:
+        parts = np.char.partition(rest, delimiter.encode() if raw else delimiter)
+        assert col.itemsize <= parts.itemsize
+        rest = np.ascontiguousarray(parts[:, 2])
+    assert got[-1].itemsize <= rest.itemsize
+
+
+def test_split_fields_key_column_as_wide_as_before():
+    """On 1BRC rows the key column is exactly as wide as the reference's
+    and the value column no wider than its longest reading."""
+    lines = _lines(_brc_rows(), raw=False)
+    key, value = port_text.split_fields(lines, 2, ";")
+    ref_key, ref_value = ref_text.split_fields(lines, 2, ";")
+    assert key.dtype == ref_key.dtype == np.dtype("<U100")
+    assert value.dtype == np.dtype("<U5")  # "-99.9"; the reference's is <U100
+    assert ref_value.dtype == np.dtype("<U100")
+
+
+def test_split_fields_counts_rows_per_path():
+    counters = port_text._flight.RECORDER.counters
+    lines = _lines(_brc_rows(), raw=False)
+
+    def deltas(fn):
+        before = [counters.get(k, 0) for k in ("split_fields_rows", "split_fields_fallback_rows")]
+        fn()
+        after = [counters.get(k, 0) for k in ("split_fields_rows", "split_fields_fallback_rows")]
+        return [a - b for a, b in zip(after, before)]
+
+    assert deltas(lambda: port_text.split_fields(lines, 2, ";")) == [len(lines), 0]
+    assert deltas(lambda: port_text.split_fields(_lines(_brc_rows(), raw=True), 2, ";")) == [len(lines), 0]
+    two = np.char.replace(lines, ";", "::")
+    assert deltas(lambda: port_text.split_fields(two, 2, "::")) == [0, len(lines)]
+    # Refused batches count in neither, on either path.
+    assert deltas(lambda: port_text.split_fields(lines, 3, ";")) == [0, 0]
+    assert deltas(lambda: port_text.split_fields(two, 3, "::")) == [0, 0]
 
 
 @pytest.mark.parametrize(
