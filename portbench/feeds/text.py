@@ -11,6 +11,7 @@ import numpy as np
 
 from portbench.sources import Part, Source
 
+GENERATOR = "brc"
 KEYS = ("batch_rows", "ring", "chunk_bytes")
 
 

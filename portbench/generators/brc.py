@@ -1,6 +1,6 @@
-"""The one general traffic generator.
+"""The 1BRC generator (a configuration's ``"generator": "brc"``).
 
-Every row of every cell comes from here, from the seed alone: a
+Every row of a 1BRC cell comes from here, from the seed alone: a
 station id and a reading in deci-degrees.  A configuration file fixes
 the stations (how many, their UTF-8 names, each one's mean, how they
 are drawn) and the readings; a traffic file fixes the batch size and

@@ -4,12 +4,24 @@ sources handed over, from the generator's ring of distinct batches and
 how many times each was handed over (the per-batch partials of
 ``chip_smoke.py:982`` ``_reference`` and ``:1190`` ``_stats_oracle``,
 combined by multiplicity).  Plain numpy; the control
-(:func:`lowp`) is the same aggregation in torch at a lower precision.
+(:func:`lowp`) is the same aggregation in torch at a lower precision
+(:func:`lower_precision`).  The comparison is the stats tuples' shared
+one (``_judge.judge``).
 """
+
+import weakref
 
 import numpy as np
 
-__all__ = ["canon", "expect", "lowp", "pack"]
+from portbench.reference._judge import judge
+
+__all__ = ["canon", "expect", "judge", "lower_precision", "lowp", "pack"]
+
+#: The precision one below each one the configuration may state.
+_LOWER = {"float64": "float32", "float32": "bfloat16"}
+
+#: Each stream's station name -> id map, built at its first sink write.
+_INDEX = weakref.WeakKeyDictionary()
 
 
 def _partials(ids: np.ndarray, deci: np.ndarray, n_keys: int):
@@ -59,9 +71,12 @@ def expect(stream, handed, cell: dict) -> dict:
     return want
 
 
-def pack(sink: str, items, index: dict) -> np.ndarray:
+def pack(sink: str, items, stream) -> np.ndarray:
     """``(station, (min, mean, max, count))`` items as rows ``[station
     id, min, mean, max, count]`` (an unknown station is -1)."""
+    index = _INDEX.get(stream)
+    if index is None:
+        index = _INDEX[stream] = {name: i for i, name in enumerate(stream.stations.names.tolist())}
     rows = [(index.get(name, -1), *stats) for name, stats in items]
     return np.array(rows, dtype=np.float64).reshape(-1, 5)
 
@@ -76,6 +91,15 @@ def canon(outputs: dict, stream) -> dict:
             k = ("again", len(got))
         got[k] = tuple(row[1:])
     return got
+
+
+def lower_precision(cfg: dict) -> str:
+    """The control's precision: one below the configuration's
+    (bfloat16 for float32, float32 for float64)."""
+    if cfg["precision"] not in _LOWER:
+        msg = f"precision {cfg['precision']!r}: the control knows {sorted(_LOWER)}"
+        raise ValueError(msg)
+    return _LOWER[cfg["precision"]]
 
 
 def lowp(stream, handed, cell: dict, dtype, device) -> dict:

@@ -6,16 +6,18 @@ from the root of a checkout.  The cell is an entry of ``workloads`` in
 ``BENCHMARK.json``; everything else is found by name, so a new
 configuration, cell, traffic mix or metric is a new file:
 
-- ``portbench/configs/<config>.json``: the deployment (stations,
-  readings, guarantees, the limits of the comparison);
-- ``portbench/traffic/<traffic>.json``: the batch size and ring of the
-  general generator, and the feed that hands the rows over, with its
-  parameters;
+- ``portbench/configs/<config>.json``: the deployment (the generator
+  that makes its data, the data's shape, guarantees, the limits of the
+  comparison);
+- ``portbench/traffic/<traffic>.json``: the generator's batch size and
+  ring, and the feed that hands the rows over, with its parameters;
 - ``portbench/cells/<cell>.json``: the flow, its parameters, program
   knobs, the kernels the window must launch, warm-up and the fold's
   row bytes;
-- ``portbench/feeds/<feed>.py``, ``portbench/flows/<flow>.py``,
-  ``portbench/reference/<config>.py``, ``portbench/metrics/<metric>.py``.
+- ``portbench/generators/<generator>.py``, ``portbench/feeds/<feed>.py``,
+  ``portbench/flows/<flow>.py``, ``portbench/reference/<config>.py``
+  (which packs the sink's items, works out the expected results and
+  judges them), ``portbench/metrics/<metric>.py``.
 
 A run makes its inputs from the seed, warms up on this cell's own
 shapes, measures for ``--seconds``, checks every result at the sink
@@ -40,6 +42,8 @@ from typing import Any, Dict, Optional
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "bytewax_tpu")
+#: What every ``reference/<config>.py`` gives the run.
+REFERENCE = ("expect", "pack", "canon", "judge")
 
 
 def _process_age_s() -> Optional[float]:
@@ -112,16 +116,35 @@ class Cell:
     def module(self, folder: str, name: str):
         return load_module(self.bench_dir / folder / f"{name}.py", f"portbench_{folder}_{name}")
 
+    def generator(self):
+        """The configuration's generator's ``Stream`` class."""
+        return self.module("generators", self.cfg["generator"]).Stream
+
     def feed(self):
         """The traffic's feed class, its parameters checked against the
-        ones the feed reads."""
+        ones the feed reads, its generator against the
+        configuration's."""
         params = {k: v for k, v in self.traffic.items() if k not in ("feed", "why")}
         mod = self.module("feeds", self.traffic["feed"])
         if set(params) != set(mod.KEYS):
             msg = (f"traffic {self.workload['traffic']!r} gives {sorted(params)}; "
                    f"feed {self.traffic['feed']!r} reads {sorted(mod.KEYS)}")
             raise BenchError(msg)
+        if getattr(mod, "GENERATOR", None) != self.cfg["generator"]:
+            msg = (f"feed {self.traffic['feed']!r} reads generator {getattr(mod, 'GENERATOR', None)!r}; "
+                   f"configuration {self.workload['config']!r} names {self.cfg['generator']!r}")
+            raise BenchError(msg)
         return mod.Feed
+
+    def reference(self, *extra: str):
+        """The configuration's plain reference, with every function of
+        ``REFERENCE`` (and of ``extra``)."""
+        mod = self.module("reference", self.workload["config"])
+        lacks = [f for f in REFERENCE + extra if not callable(getattr(mod, f, None))]
+        if lacks:
+            msg = f"reference {self.workload['config']!r} has no {', '.join(lacks)}"
+            raise BenchError(msg)
+        return mod
 
 
 def find_cell(root: Path, name: str, overrides: Optional[dict] = None) -> Cell:
@@ -140,6 +163,13 @@ def find_cell(root: Path, name: str, overrides: Optional[dict] = None) -> Cell:
     spec = _read_json(bench_dir / "cells" / f"{name}.json")
     for part, values in (overrides or {}).items():
         {"cfg": cfg, "traffic": traffic, "spec": spec}[part].update(values)
+    gen = cfg.get("generator")
+    if not gen:
+        msg = f"configuration {wl['config']!r} names no generator (\"generator\": a module of generators/)"
+        raise BenchError(msg)
+    if not (bench_dir / "generators" / f"{gen}.py").is_file():
+        msg = f"configuration {wl['config']!r} names generator {gen!r}: generators/{gen}.py is missing"
+        raise BenchError(msg)
     return Cell(name, bench, wl, cfg, traffic, spec, bench_dir)
 
 
@@ -194,10 +224,8 @@ def _check_program(root: Path) -> None:
 def _sinks(cell: Cell, ref, stream):
     from portbench.sources import TimedSink
 
-    index = {name: i for i, name in enumerate(stream.stations.names.tolist())}
-
     def packer(name):
-        return lambda items: ref.pack(name, items, index)
+        return lambda items: ref.pack(name, items, stream)
 
     return {name: TimedSink(packer(name)) for name in cell.spec.get("sinks", ["down"])}
 
@@ -284,8 +312,6 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     _set_env(cell, device)
     import torch
 
-    from portbench.generator import Stream
-
     on_card = device != "cpu"
     _check_program(ROOT)
     from bytewax_tpu_torch.engine import flight
@@ -295,11 +321,12 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     from portbench.sources import Handed
 
     feed_cls = cell.feed()
-    stream = Stream(cell.cfg, cell.traffic, seed)
+    stream_cls = cell.generator()
+    ref = cell.reference()
+    flows = cell.module("flows", cell.spec["flow"])
+    stream = stream_cls(cell.cfg, cell.traffic, seed)
     workdir = Path(tmp or tempfile.gettempdir()) / f"portbench_{cell.name}"
     feed = feed_cls(stream, cell.traffic, workdir)
-    flows = cell.module("flows", cell.spec["flow"])
-    ref = cell.module("reference", cell.workload["config"])
     # bytewax's default epoch interval unless the cell sets one.
     epoch = cell.spec.get("epoch_interval_s")
     run_kwargs = {} if epoch is None else {"epoch_interval": timedelta(seconds=float(epoch))}
@@ -375,9 +402,7 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     # is freed.
     got = ref.canon({name: s.rows() for name, s in sinks.items()}, stream)
     want = ref.expect(stream, handed, cell.spec)
-    from portbench.reference._judge import judge
-
-    verdict = judge(got, want, cell.cfg["limits"])
+    verdict = ref.judge(got, want, cell.cfg["limits"])
     del got, want
 
     ctx = Context(cell=cell, setup_s=setup_s, window_s=window_s, rows=handed.rows)

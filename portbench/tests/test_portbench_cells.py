@@ -2,12 +2,15 @@
 CPU at a tiny size, judged by its reference; and the same runs with
 the timed path broken, which the comparison must catch."""
 
+import hashlib
+import json
+
 import numpy as np
 import pytest
 
 from portbench import run
 from portbench.feeds.text import text_file
-from portbench.generator import Stream
+from portbench.generators.brc import Stream
 from portbench.tests.tiny import ROOT, SECONDS, TINY, overrides
 
 CELLS = sorted(TINY)
@@ -32,6 +35,43 @@ def test_the_stream_is_made_from_the_seed_alone():
     assert all(len(a.columns(0)[k]) == len(c.columns(0)[k]) for k in ("key_id", "value"))
     assert len(a.stations.names) == len(c.stations.names)
     assert len(text_file(a, 0).splitlines()) == len(text_file(c, 0).splitlines()) == a.batch_rows
+
+
+#: SHA-256 of a full-size stream (each block's ids then readings, then
+#: the station names joined by newlines) and of the text feed's files,
+#: recorded from the generator as it was before it became
+#: ``generators/brc.py``; a run's inputs must not move.
+IDENTITY = {
+    ("columnar", 1): "55c5e3ab5169c17b540b81ad8941010e6048bff0dfad7c2ca36419aa4058d9ff",
+    ("columnar", 2): "be72c84e1933ef9497d3dc39f47dabfc7b613355139898c9c3ee2005e7df9213",
+    ("columnar", 3): "19c83d9ae39e3bbe1d350cb611660d671815b3fc510252af176ff78e8d299074",
+    ("text", 1): "d20e7459c29be6082962fab971594b2b3a06c1b8f1828b431b7d46453e2d1c4c",
+    ("text", 2): "369b35c02366f248f2c69ee8cb49be2e3598c6b95bd8e02c58bbc88e7f0a9b31",
+    ("text", 3): "9c8326a4166646525501f06d241c9c673469e6e1d543c7ad0df634e6cf97909c",
+}
+TEXT_FILES = {
+    1: "f7abce11feee8855ed767b0ab25c1bac115f1993c5a8fca4618e470a118ebc98",
+    2: "ed23e2cf955389a537b3a46e27982d811e1a0000f9fc3fbe392bc8dd43a68087",
+    3: "e82fbb423c06df13b1add51354cf492291df35609fdf98d9025cc08911cba8f8",
+}
+
+
+@pytest.mark.parametrize("traffic,seed", sorted(IDENTITY))
+def test_the_brc_stream_is_byte_identical_to_the_recorded_one(traffic, seed):
+    pb = ROOT / "portbench"
+    cfg = json.loads((pb / "configs" / "brc-10k.json").read_text())
+    stream = Stream(cfg, json.loads((pb / "traffic" / f"{traffic}.json").read_text()), seed)
+    h = hashlib.sha256()
+    for blk in stream.blocks:
+        h.update(blk.ids.tobytes())
+        h.update(blk.deci.tobytes())
+    h.update("\n".join(stream.stations.names.tolist()).encode())
+    assert h.hexdigest() == IDENTITY[traffic, seed]
+    if traffic == "text":
+        files = hashlib.sha256()
+        for r in range(stream.ring):
+            files.update(text_file(stream, r))
+        assert files.hexdigest() == TEXT_FILES[seed]
 
 
 def test_stations_are_drawn_as_the_configuration_says():

@@ -56,7 +56,9 @@ def test_every_name_has_its_files():
     for c in BENCH["configs"]:
         assert (ROOT / c["file"]).is_file() and c["file"].startswith("portbench/")
         assert (pb / "reference" / f"{c['name']}.py").is_file()
-        assert json.loads((ROOT / c["file"]).read_text())["reduced"] == c["reduced"]
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        assert cfg["reduced"] == c["reduced"]
+        assert (pb / "generators" / f"{cfg['generator']}.py").is_file()
     for w in BENCH["workloads"]:
         assert w["config"] in configs and w["chips"] in (1, 4)
         traffic = json.loads((pb / "traffic" / f"{w['traffic']}.json").read_text())

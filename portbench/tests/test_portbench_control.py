@@ -6,7 +6,8 @@ the card at the cells' own sizes."""
 
 import pytest
 
-from portbench.tests.tiny import TINY, overrides
+from portbench import run
+from portbench.tests.tiny import ROOT, TINY, overrides
 from portbench.tools import control
 
 # Blocks a 50 s run hands over on the H100 (PERF.md's runs: about
@@ -27,9 +28,11 @@ def test_the_control_fails_and_the_reference_passes(cell):
 
 
 def test_the_control_knows_only_the_precisions_it_can_lower():
-    assert control.lower_precision({"precision": "float64"}) == "float32"
+    ref = run.find_cell(ROOT, "brc-10k.columnar").reference("lower_precision")
+    assert ref.lower_precision({"precision": "float32"}) == "bfloat16"
+    assert ref.lower_precision({"precision": "float64"}) == "float32"
     with pytest.raises(ValueError, match="precision"):
-        control.lower_precision({"precision": "int8"})
+        ref.lower_precision({"precision": "int8"})
 
 
 @pytest.mark.cuda

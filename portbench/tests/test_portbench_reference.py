@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 
 from portbench import run
-from portbench.generator import Stream, stations_of
+from portbench.generators.brc import Stream, stations_of
 from portbench.reference import _judge
 from portbench.tests.tiny import ROOT, overrides
 from portbench.tools.control import Blocks

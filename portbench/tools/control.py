@@ -1,8 +1,8 @@
 """Read the control: the plain reference put in the program's place,
-computed one precision below the configuration's ``precision``
-(bfloat16 for float32, float32 for float64), over as many blocks of a
+computed in the lower precision that the reference names for its
+configuration (``lower_precision(cfg)``), over as many blocks of a
 cell's traffic as a run hands over, and judged by the run's own
-comparison.  It has to come out not correct: that shows the comparison
+comparison (the reference's ``judge``).  It has to come out not correct: that shows the comparison
 can fail.
 
     python3 -m portbench.tools.control --cell brc-10k.columnar \\
@@ -17,10 +17,6 @@ import json
 import sys
 
 
-#: The precision one below each one a configuration may state.
-LOWER = {"float64": "float32", "float32": "bfloat16"}
-
-
 class Blocks:
     """A hand-over log of blocks ``0 .. n - 1``, as a closed-loop feed
     that kept pulling would leave."""
@@ -29,29 +25,20 @@ class Blocks:
         self.block = list(range(n))
 
 
-def lower_precision(cfg: dict) -> str:
-    if cfg["precision"] not in LOWER:
-        msg = f"precision {cfg['precision']!r}: the control knows {sorted(LOWER)}"
-        raise ValueError(msg)
-    return LOWER[cfg["precision"]]
-
-
 def read(cell_name: str, seed: int, n_blocks: int, device: str, dtype_name=None,
          overrides=None, root=None) -> dict:
     import torch
 
     from portbench import run
-    from portbench.generator import Stream
-    from portbench.reference._judge import judge
 
     cell = run.find_cell(root or run.ROOT, cell_name, overrides)
-    stream = Stream(cell.cfg, cell.traffic, seed)
-    ref = cell.module("reference", cell.workload["config"])
-    dtype_name = dtype_name or lower_precision(cell.cfg)
+    ref = cell.reference("lowp", "lower_precision")
+    stream = cell.generator()(cell.cfg, cell.traffic, seed)
+    dtype_name = dtype_name or ref.lower_precision(cell.cfg)
     handed = Blocks(n_blocks)
     want = ref.expect(stream, handed, cell.spec)
     got = ref.lowp(stream, handed, cell.spec, getattr(torch, dtype_name), device)
-    verdict = judge(got, want, cell.cfg["limits"])
+    verdict = ref.judge(got, want, cell.cfg["limits"])
     return {
         "cell": cell_name, "seed": seed, "blocks": n_blocks, "dtype": dtype_name, "device": device,
         "correct": verdict.correct, "attempted": verdict.attempted, "failed": verdict.failed,
@@ -65,7 +52,7 @@ def main(argv=None) -> int:
     ap.add_argument("--blocks", type=int, required=True)
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--dtype", default=None, help="default: one below the configuration's")
+    ap.add_argument("--dtype", default=None, help="default: the reference's lower_precision(cfg)")
     args = ap.parse_args(argv)
     for seed in [int(s) for s in args.seeds.split(",")]:
         print(json.dumps(read(args.cell, seed, args.blocks, args.device, args.dtype)), flush=True)
