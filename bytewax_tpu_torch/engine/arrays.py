@@ -480,6 +480,17 @@ class KeyEncoder:
             self._sorted = np.delete(self._sorted, pos)
             self._ids = np.delete(self._ids, pos)
 
+    def drop_ids(self, internal_ids) -> None:
+        """Forget every key mapped to one of these internal ids (their
+        ids are being released for reuse): one pass over the seen set,
+        whatever the number of ids."""
+        if self._ids is None or not len(self._ids):
+            return
+        keep = ~np.isin(self._ids, np.asarray(internal_ids, dtype=np.int64))
+        if not keep.all():
+            self._sorted = self._sorted[keep]
+            self._ids = self._ids[keep]
+
     def clear(self) -> None:
         self._sorted = None
         self._ids = None

@@ -917,6 +917,12 @@ class _OpRt:
         """Return (state_key, state-or-None) changed this epoch."""
         return []
 
+    def epoch_forget(self) -> None:
+        """Close an epoch with no recovery store: forget what changed
+        in it (by default by building the snapshots, as a store would
+        take them)."""
+        self.epoch_snaps()
+
     def close(self) -> None:
         """Shutdown cleanup at clean EOF."""
 
@@ -2542,6 +2548,20 @@ class _StatefulBatchRt(_OpRt):
             return self.wagg.notify_at()
         return min(self.sched.values()) if self.sched else None
 
+    def epoch_forget(self) -> None:
+        """With no store, a device windower's close only clears which
+        keys changed: building their snapshots (a device readback and
+        a ``_WindowSnapshot`` a key) would hold the stream for
+        seconds at 10^5 open keys, and the windower's watermarks run
+        on with the host's time meanwhile, so on-time rows of the next
+        batch would turn late."""
+        if self.wagg is None:
+            self.epoch_snaps()
+            return
+        self.pipeline_flush()
+        self.awoken.clear()
+        self.wagg.touched.clear()
+
     def epoch_snaps(self) -> List[Tuple[str, Optional[Any]]]:
         # Snapshots only ever read post-flush state: the driver
         # drains every pipeline before the close (and the cluster
@@ -3795,7 +3815,7 @@ class _Driver:
         if self.store is None:
             with self._ledger_phase("snapshot"):
                 for rt in self.rts:
-                    rt.epoch_snaps()  # still clears awoken sets
+                    rt.epoch_forget()
             return
         snaps: List[Tuple[str, str, Optional[bytes]]] = []
         with self._ledger_phase("snapshot"):

@@ -33,6 +33,7 @@ pre-pipeline engine.  ``on_notify``/``on_eof``/``snapshots_for``
 remain synchronous and may only run with the pipeline drained.
 """
 
+from collections import deque
 from datetime import datetime, timedelta, timezone
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -138,7 +139,21 @@ class DeviceWindowAggState:
     watermark = max event ts − wait + system time since that event,
     ``windowing.py:_EventClockLogic``) and the open-window table
     mapping ``(key, window_id)`` to a device slot.
+
+    Key state is bounded as the host tier bounds it: once a key holds
+    no open window its clock, its id and its encoder entries are
+    dropped (the host tier discards a ``_WindowLogic`` that
+    ``_is_empty``), the id is reused by the next new key, and the key
+    snapshots as a discard.  A key that comes back starts a fresh
+    clock on both tiers.  Keys whose last window closed in a deferred
+    device phase are retired by the next ingest on the driver's
+    thread (or at once by ``on_notify``/``on_eof``, which run with the
+    pipeline drained), unless an ingest after that phase touched them.
     """
+
+    #: Whether keys with no open window are dropped (the session
+    #: windower never discards a key: its ids must not be reused).
+    _retires = True
 
     def __init__(self, spec: WindowAccelSpec):
         from bytewax_tpu_torch.engine.sharded_state import make_agg_state
@@ -151,14 +166,29 @@ class DeviceWindowAggState:
         self.agg = make_agg_state(spec.kind)
         # windows_per_ts is static for a sliding windower.
         self.expand = max(1, int(np.ceil(spec.length_us / spec.offset_us)))
-        # Per-key clock state, indexed by key id.
-        self.keys: List[str] = []
+        # Per-key clock state, indexed by key id.  ``keys`` holds None
+        # at a retired id until ``_free`` hands it to a new key; the
+        # clock arrays grow geometrically past the ids in use.
+        self.keys: List[Optional[str]] = []
         self.key_ids: Dict[str, int] = {}
+        self._free: List[int] = []
         self.base_us = np.empty(0, dtype=np.float64)  # watermark base
         self.sys_at_base = np.empty(0, dtype=np.float64)
+        #: The ingest that last touched each key id (``_seq`` counts
+        #: ingests), so a retirement never drops a key that an ingest
+        #: after the emptying phase brought back.
+        self._seq = 0
+        self._last_seq = np.empty(0, dtype=np.int64)
         # Open windows: composite "k\x00wid" -> True (slot table lives
         # in self.agg keyed by the same composite).
         self.open_close_us: Dict[Tuple[int, int], float] = {}
+        #: Open windows per key id (absent: none).  A dict, not an
+        #: array: the deferred device phase updates it while the
+        #: driver's thread may grow the id space.
+        self._open_n: Dict[int, int] = {}
+        #: ``(ingest seq, key ids)`` left with no open window by a
+        #: device phase, retired on the driver's thread.
+        self._retire_q: deque = deque()
         #: Keys touched since the last epoch snapshot.
         self.touched: set = set()
         # Cached (kids, wids, closes) arrays over open_close_us;
@@ -172,6 +202,10 @@ class DeviceWindowAggState:
         # Sticky marker: itemized promotion failed a deterministic
         # check; stop re-trying it every batch.
         self._promote_failed = False
+        # Itemized promotion's native key dict and its dense ids' key
+        # ids (built on first use, dropped by a retirement).
+        self._item_iddict: Optional[Dict[str, int]] = None
+        self._item_kids = np.empty(0, dtype=np.int64)
         # Deferred device phases read the per-key clock as of their
         # own ingest, so the ingest snapshots it; at pipeline depth 1
         # the phase runs inline before the clock can move again and
@@ -184,23 +218,80 @@ class DeviceWindowAggState:
 
     def _key_ids_for(self, keys: List[str]) -> np.ndarray:
         out = np.empty(len(keys), dtype=np.int64)
+        fresh = []
         for i, k in enumerate(keys):
             kid = self.key_ids.get(k)
             if kid is None:
-                kid = len(self.keys)
+                if self._free:
+                    kid = self._free.pop()
+                    self.keys[kid] = k
+                else:
+                    kid = len(self.keys)
+                    self.keys.append(k)
                 self.key_ids[k] = kid
-                self.keys.append(k)
+                fresh.append(kid)
             out[i] = kid
-        if len(self.keys) > len(self.base_us):
-            grow = len(self.keys) - len(self.base_us)
-            now_us = datetime.now(timezone.utc).timestamp() * _US
-            self.base_us = np.concatenate(
-                [self.base_us, np.full(grow, -np.inf)]
-            )
-            self.sys_at_base = np.concatenate(
-                [self.sys_at_base, np.full(grow, now_us)]
+        if fresh:
+            if len(self.keys) > len(self.base_us):
+                self._grow_clock(len(self.keys))
+            self.base_us[fresh] = -np.inf
+            self.sys_at_base[fresh] = (
+                datetime.now(timezone.utc).timestamp() * _US
             )
         return out
+
+    def _grow_clock(self, needed: int) -> None:
+        """Make room for ``needed`` key ids, doubling, so a batch of
+        new keys copies the clock only when the id space outgrows
+        it."""
+        cap = max(needed, 2 * len(self.base_us), 64)
+        have = len(self.base_us)
+        for name, fill in (
+            ("base_us", -np.inf),
+            ("sys_at_base", 0.0),
+            ("_last_seq", 0),
+        ):
+            old = getattr(self, name)
+            new = np.full(cap, fill, dtype=old.dtype)
+            new[:have] = old
+            setattr(self, name, new)
+
+    def _retire_later(self, kids, seq: int) -> None:
+        """Queue key ids a device phase of ingest ``seq`` left with no
+        open window (any thread)."""
+        if self._retires and len(kids):
+            self._retire_q.append((seq, kids))
+
+    def _drain_retired(self) -> None:
+        """Retire the queued key ids that still hold no open window
+        and that no later ingest touched (the driver's thread only):
+        their clocks, ids and encoder entries go, as the host tier
+        discards an empty ``_WindowLogic``."""
+        gone = set()
+        while self._retire_q:
+            seq, kids = self._retire_q.popleft()
+            for kid in kids:
+                kid = int(kid)
+                if (
+                    kid not in self._open_n
+                    and self.keys[kid] is not None
+                    and self._last_seq[kid] <= seq
+                ):
+                    gone.add(kid)
+        if not gone:
+            return
+        ids = sorted(gone)
+        for kid in ids:
+            del self.key_ids[self.keys[kid]]
+            self.keys[kid] = None
+        self.base_us[ids] = -np.inf
+        self._free.extend(ids)
+        self._enc.drop_ids(ids)
+        self._vocab.drop_ids(ids)
+        # The itemized path's native dict maps keys to dense ids of
+        # its own; start it over rather than map a retired key.
+        self._item_iddict = None
+        _flight.RECORDER.count("window_keys_retired", len(ids))
 
     def _watermarks(self, kids: np.ndarray, now_us: float) -> np.ndarray:
         return self.base_us[kids] + (now_us - self.sys_at_base[kids])
@@ -223,32 +314,35 @@ class DeviceWindowAggState:
         no per-row Python.  Late rows are reported with their value
         (counting: their timestamp).  Returns ``(late_events,
         device_phase)`` — see :meth:`_ingest`."""
-        if "key_id" in batch.cols and batch.key_vocab is not None:
-            kids = self._sync_vocab(
-                batch.numpy("key_id").astype(np.int64), batch.key_vocab
-            )
-        else:
-            kids = self._enc.encode(
-                batch.numpy("key"), self._key_ids_for
-            )
-        ts_col = batch.numpy("ts")
-        if np.issubdtype(ts_col.dtype, np.datetime64):
-            ts_us = ts_col.astype("datetime64[us]").astype(np.int64).astype(
-                np.float64
-            )
-        else:
-            ts_us = ts_col.astype(np.float64)
-        if self.spec.kind == "count":
-            return self._ingest(kids, ts_us, _LateTs(ts_us))
-        # Keep the column's dtype: integer folds stay exact (the slot
-        # table's _pick_dtype handles int32 and rejects wider ints).
-        vals = batch.numpy("value")
-        if batch.value_scale is not None:
-            vals = (vals * batch.value_scale).astype(np.float32)
-        return self._ingest(kids, ts_us, vals)
+        with _flight.span("window_clock"):
+            self._drain_retired()
+            if "key_id" in batch.cols and batch.key_vocab is not None:
+                kids = self._sync_vocab(
+                    batch.numpy("key_id").astype(np.int64), batch.key_vocab
+                )
+            else:
+                kids = self._enc.encode(
+                    batch.numpy("key"), self._key_ids_for
+                )
+            ts_col = batch.numpy("ts")
+            if np.issubdtype(ts_col.dtype, np.datetime64):
+                ts_us = ts_col.astype("datetime64[us]").astype(
+                    np.int64
+                ).astype(np.float64)
+            else:
+                ts_us = ts_col.astype(np.float64)
+            if self.spec.kind == "count":
+                return self._ingest(kids, ts_us, _LateTs(ts_us))
+            # Keep the column's dtype: integer folds stay exact (the
+            # slot table's _pick_dtype handles int32 and rejects wider
+            # ints).
+            vals = batch.numpy("value")
+            if batch.value_scale is not None:
+                vals = (vals * batch.value_scale).astype(np.float32)
+            return self._ingest(kids, ts_us, vals)
 
     def is_empty(self) -> bool:
-        return not self.open_close_us and not self.keys and not self.touched
+        return not self.open_close_us and not self.key_ids and not self.touched
 
     def on_batch_items(self, items: List[Any]):
         """Itemized promotion: one native pass dictionary-encodes the
@@ -274,13 +368,15 @@ class DeviceWindowAggState:
         ids = np.empty(n, dtype=np.int32)
         ts_us = np.empty(n, dtype=np.float64)
         vals = np.empty(n, dtype=np.float64)
-        # The native id dict shares the engine's key-id space; resync
-        # when other ingest paths (columnar, per-item) allocated ids
-        # this dict hasn't seen.
-        iddict = getattr(self, "_item_iddict", None)
-        if iddict is None or len(iddict) != len(self.key_ids):
-            iddict = dict(self.key_ids)
-            self._item_iddict = iddict
+        with _flight.span("window_clock"):
+            self._drain_retired()
+        # The native dict numbers keys densely in first-sight order;
+        # ``_item_kids`` maps those numbers to the engine's key ids
+        # (which retirement reuses), and a retirement starts it over.
+        iddict = self._item_iddict
+        if iddict is None:
+            iddict = self._item_iddict = {}
+            self._item_kids = np.empty(0, dtype=np.int64)
         try:
             res = wa_encode(items, iddict, ids, ts_us, vals)
         except (TypeError, AttributeError) as ex:
@@ -323,41 +419,47 @@ class DeviceWindowAggState:
                 )
                 raise NonNumericValues(msg)
         if new_keys:
-            kids_new = self._key_ids_for(new_keys)
-            # wa_encode assigned len(iddict)-ordered ids; they must
-            # line up with the engine's first-seen allocation.  Not an
-            # assert: under ``python -O`` a desync would silently
-            # misattribute every subsequent window fold to the wrong
-            # keys instead of failing the step.
-            if int(kids_new[-1]) != len(self.keys) - 1:
+            self._item_kids = np.concatenate(
+                [self._item_kids, self._key_ids_for(new_keys)]
+            )
+            # wa_encode numbered the new keys len(iddict)-ordered;
+            # the map must cover them all.  Not an assert: under
+            # ``python -O`` a desync would silently misattribute every
+            # subsequent window fold to the wrong keys instead of
+            # failing the step.
+            if len(self._item_kids) != len(iddict):
                 self._promote_failed = True
                 msg = (
                     "itemized windowing promotion desynchronized from "
-                    "the engine key-id space (native id "
-                    f"{int(kids_new[-1])} vs engine id "
-                    f"{len(self.keys) - 1}); this is an engine "
+                    f"the engine key-id space ({len(iddict)} native ids, "
+                    f"{len(self._item_kids)} mapped); this is an engine "
                     "invariant violation — please report it"
                 )
                 raise RuntimeError(msg)
-        kids = ids.astype(np.int64)
-        if self.spec.kind == "count":
-            return self._ingest(kids, ts_us, _LateTs(ts_us))
-        # Late events carry the original value objects (a TsValue
-        # keeps its .ts); the fold consumes the encoded column.
-        return self._ingest(kids, ts_us, _ItemVals(items), fold_vals=vals)
+        kids = self._item_kids[ids]
+        with _flight.span("window_clock"):
+            if self.spec.kind == "count":
+                return self._ingest(kids, ts_us, _LateTs(ts_us))
+            # Late events carry the original value objects (a TsValue
+            # keeps its .ts); the fold consumes the encoded column.
+            return self._ingest(
+                kids, ts_us, _ItemVals(items), fold_vals=vals
+            )
 
     def on_batch(self, keys: List[str], values: List[Any]):
         """Fold a batch; window events are tagged like the host tier's
         ``_WindowLogic`` ("E" emit / "L" late / "M" meta).  Returns
         ``(late_events, device_phase)`` — see :meth:`_ingest`."""
         spec = self.spec
-        kids = self._key_ids_for(keys)
-        ts_us = np.fromiter(
-            (_to_us(spec.ts_getter(v)) for v in values),
-            dtype=np.float64,
-            count=len(values),
-        )
-        return self._ingest(kids, ts_us, values)
+        with _flight.span("window_clock"):
+            self._drain_retired()
+            kids = self._key_ids_for(keys)
+            ts_us = np.fromiter(
+                (_to_us(spec.ts_getter(v)) for v in values),
+                dtype=np.float64,
+                count=len(values),
+            )
+            return self._ingest(kids, ts_us, values)
 
     def _ingest(
         self, kids: np.ndarray, ts_us: np.ndarray, values, fold_vals=None
@@ -376,6 +478,8 @@ class DeviceWindowAggState:
         finalize."""
         spec = self.spec
         now_us = datetime.now(timezone.utc).timestamp() * _US
+        self._seq += 1
+        seq = self._seq
         self.touched.update(
             self.keys[int(k)] for k in np.unique(kids)
         )
@@ -395,6 +499,7 @@ class DeviceWindowAggState:
         seg_counts = np.diff(np.append(seg_starts, n))
         n_seg = len(seg_kids)
         carry = self.base_us[seg_kids] + (now_us - self.sys_at_base[seg_kids])
+        self._last_seq[seg_kids] = seq
 
         # Segmented prefix max with no per-key Python: shift each
         # key's rows into its own disjoint value band (band width >
@@ -441,12 +546,13 @@ class DeviceWindowAggState:
         late_mask = ts_us < wm_rows
 
         events: List[Tuple[str, Tuple[int, str, Any]]] = []
+        late_kids = ()
         if late_mask.any():
-            events.extend(
-                self._late_events(
-                    np.nonzero(late_mask)[0], kids, ts_us, values
-                )
-            )
+            late_rows = np.nonzero(late_mask)[0]
+            events.extend(self._late_events(late_rows, kids, ts_us, values))
+            # A key whose rows were all late may hold no window: it
+            # is a candidate for retirement once its phase has run.
+            late_kids = np.unique(kids[late_rows])
 
         ok = ~late_mask
         kids_ok = ts_ok = vals_ok = None
@@ -473,7 +579,8 @@ class DeviceWindowAggState:
         def device_phase():
             if kids_ok is not None:
                 self._absorb(kids_ok, ts_ok, vals_ok)
-            closes = self._close_due(now_us, clock=clock)
+            closes = self._close_due(now_us, clock=clock, seq=seq)
+            self._retire_later(late_kids, seq)
             return closes, self.notify_at(clock=clock)
 
         return events, device_phase
@@ -517,6 +624,20 @@ class DeviceWindowAggState:
     ) -> None:
         """Fold on-time rows into their containing windows (opening
         windows as needed) — the scatter-combine into the slot table."""
+        with _flight.span("window_assign"):
+            slots, val_rep = self._assign_slots(kids_ok, ts_ok, vals_ok)
+        if len(slots):
+            _flight.RECORDER.count("window_rows_ingested", len(val_rep))
+            _flight.RECORDER.record(
+                "device_dispatch", tier="window", rows=len(val_rep)
+            )
+            self.agg.update_ids(slots, val_rep)
+
+    def _assign_slots(
+        self, kids_ok: np.ndarray, ts_ok: np.ndarray, vals_ok: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Each on-time row's windows, opened as needed: the ``(slot,
+        value)`` rows of the fold."""
         spec = self.spec
         hi = np.floor(
             (ts_ok - spec.align_us) / spec.offset_us
@@ -560,6 +681,7 @@ class DeviceWindowAggState:
         comp = (kid_rep << 32) + (wid_flat + (1 << 31))
         uniq, inverse = np.unique(comp, return_inverse=True)
         slot_of_uniq = np.empty(len(uniq), dtype=np.int32)
+        opened = 0
         for j, c in enumerate(uniq.tolist()):
             kid = c >> 32
             wid = (c & ((1 << 32) - 1)) - (1 << 31)
@@ -572,13 +694,12 @@ class DeviceWindowAggState:
                     + wid * spec.offset_us
                     + spec.length_us
                 )
+                self._open_n[kid] = self._open_n.get(kid, 0) + 1
+                opened += 1
                 self._open_cache = None
-        if len(comp):
-            _flight.RECORDER.count("window_rows_ingested", len(val_rep))
-            _flight.RECORDER.record(
-                "device_dispatch", tier="window", rows=len(val_rep)
-            )
-            self.agg.update_ids(slot_of_uniq[inverse], val_rep)
+        if opened:
+            _flight.RECORDER.count("windows_opened", opened)
+        return slot_of_uniq[inverse], val_rep
 
     def _open_arrays(self):
         """Cached parallel arrays of the open-window table so the
@@ -599,10 +720,20 @@ class DeviceWindowAggState:
         return self._open_cache
 
     def _close_due(
-        self, now_us: float, clock=None
+        self, now_us: float, clock=None, seq: Optional[int] = None
     ) -> List[Tuple[str, Tuple[int, str, Any]]]:
+        """Close every window the watermark (``clock``, or the live
+        one) has passed at ``now_us``; keys left with no window are
+        queued for retirement as of ingest ``seq`` (the latest when
+        None)."""
         if not self.open_close_us:
             return []
+        with _flight.span("window_close"):
+            return self._close_windows(
+                now_us, clock, self._seq if seq is None else seq
+            )
+
+    def _close_windows(self, now_us: float, clock, seq: int):
         kids_arr, wids_arr, closes_arr = self._open_arrays()
         base, sys_at = clock if clock is not None else (
             self.base_us,
@@ -623,10 +754,17 @@ class DeviceWindowAggState:
         )
         from bytewax_tpu_torch.operators.windowing import WindowMetadata
 
+        emptied = []
         for (kid, wid, close_us), (_ck, snap) in zip(due, snaps):
             key = self.keys[kid]
             value = self._finalize_one(snap)
             del self.open_close_us[(kid, wid)]
+            left = self._open_n[kid] - 1
+            if left:
+                self._open_n[kid] = left
+            else:
+                del self._open_n[kid]
+                emptied.append(kid)
             self.agg.discard(f"{key}\x00{wid}")
             events.append((key, (wid, "E", value)))
             open_dt = datetime.fromtimestamp(
@@ -637,6 +775,8 @@ class DeviceWindowAggState:
                 (key, (wid, "M", WindowMetadata(open_dt, close_dt)))
             )
         self._open_cache = None
+        _flight.RECORDER.count("windows_closed", len(due))
+        self._retire_later(emptied, seq)
         return events
 
     def _finalize_one(self, snap: Any) -> Any:
@@ -653,16 +793,24 @@ class DeviceWindowAggState:
 
     def on_notify(self) -> List[Tuple[str, Tuple[int, str, Any]]]:
         now_us = datetime.now(timezone.utc).timestamp() * _US
-        return self._close_due(now_us)
+        events = self._close_due(now_us)
+        self._drain_retired()
+        return events
 
     def on_eof(self) -> List[Tuple[str, Tuple[int, str, Any]]]:
-        return self._close_due(np.inf)
+        events = self._close_due(np.inf)
+        self._drain_retired()
+        return events
 
     def notify_at(self, clock=None) -> Optional[datetime]:
         """System time of the earliest window close: the instant the
         key's watermark reaches the close time."""
         if not self.open_close_us:
             return None
+        with _flight.span("window_close"):
+            return self._notify_at(clock)
+
+    def _notify_at(self, clock) -> Optional[datetime]:
         kids_arr, _wids_arr, closes_arr = self._open_arrays()
         base, sys_at = clock if clock is not None else (
             self.base_us,
@@ -801,6 +949,8 @@ class DeviceWindowAggState:
         pairs for the fold table."""
         self._load_clock(kid, snap)
         for wid, meta in snap.windower_state.opened.items():
+            if (kid, wid) not in self.open_close_us:
+                self._open_n[kid] = self._open_n.get(kid, 0) + 1
             self.open_close_us[(kid, wid)] = _to_us(meta.close_time)
         return [
             (f"{key}\x00{wid}", state)
@@ -853,6 +1003,7 @@ class DeviceWindowAggState:
             ]:
                 del self.open_close_us[(k2, wid)]
                 self.agg.discard(f"{key}\x00{wid}")
+            self._open_n.pop(kid, None)
             self._open_cache = None
             self.touched.discard(key)
             out.append((key, snap))
@@ -893,6 +1044,8 @@ class DeviceSessionAggState(DeviceWindowAggState):
     upstream bytewax ``pysrc/bytewax/operators/windowing.py:688-806``.
     """
 
+    _retires = False
+
     def __init__(self, spec: SessionAccelSpec):
         super().__init__(spec)
         #: kid -> wid -> [open_us, close_us, merged_ids set]
@@ -922,6 +1075,7 @@ class DeviceSessionAggState(DeviceWindowAggState):
             if not (hi_us < s[0] - gap or lo_us > s[1] + gap)
         ]
         if not overlapping:
+            _flight.RECORDER.count("windows_opened")
             wid = self.next_wid.get(kid, 0)
             self.next_wid[kid] = wid + 1
             sess[wid] = [lo_us, hi_us, set()]
@@ -970,9 +1124,22 @@ class DeviceSessionAggState(DeviceWindowAggState):
     def _absorb(
         self, kids_ok: np.ndarray, ts_ok: np.ndarray, vals_ok: np.ndarray
     ) -> None:
-        n = len(ts_ok)
-        if not n:
+        if not len(ts_ok):
             return
+        with _flight.span("window_assign"):
+            slots, v = self._assign_runs(kids_ok, ts_ok, vals_ok)
+        _flight.RECORDER.count("window_rows_ingested", len(v))
+        _flight.RECORDER.record(
+            "device_dispatch", tier="session", rows=len(v)
+        )
+        self.agg.update_ids(slots, v)
+
+    def _assign_runs(
+        self, kids_ok: np.ndarray, ts_ok: np.ndarray, vals_ok: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Each on-time row's session (created, extended or merged per
+        run of rows): the ``(slot, value)`` rows of the fold."""
+        n = len(ts_ok)
         order = np.lexsort((ts_ok, kids_ok))
         k = kids_ok[order]
         t = ts_ok[order]
@@ -1008,11 +1175,7 @@ class DeviceSessionAggState(DeviceWindowAggState):
                 self._slot_seq += 1
                 slots.append(slot_key)
             slot_of_run[r] = self.agg.alloc(slot_key)
-        _flight.RECORDER.count("window_rows_ingested", len(v))
-        _flight.RECORDER.record(
-            "device_dispatch", tier="session", rows=len(v)
-        )
-        self.agg.update_ids(slot_of_run[run_of_row], v)
+        return slot_of_run[run_of_row], v
 
     def _combine(self, snaps: List[Any]) -> Any:
         """Combine slot accumulators host-side (kind algebra over a
@@ -1051,11 +1214,7 @@ class DeviceSessionAggState(DeviceWindowAggState):
             del self.session_slots[(kid, wid)]
         return acc
 
-    def _close_due(
-        self, now_us: float, clock=None
-    ) -> List[Tuple[str, Tuple[int, str, Any]]]:
-        if not self.open_close_us:
-            return []
+    def _close_windows(self, now_us: float, clock, seq: int):
         kids_arr, wids_arr, dues_arr = self._open_arrays()
         base, sys_at = clock if clock is not None else (
             self.base_us,
@@ -1084,6 +1243,7 @@ class DeviceSessionAggState(DeviceWindowAggState):
             )
             events.append((key, (wid, "M", meta)))
         self._open_cache = None
+        _flight.RECORDER.count("windows_closed", len(due_rows))
         return events
 
     # -- recovery -----------------------------------------------------------
