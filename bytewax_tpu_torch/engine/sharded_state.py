@@ -52,7 +52,8 @@ from bytewax_tpu_torch.engine.xla import (
     DeviceAggState,
     NonNumericValues,
     _final_of,
-    _snap_of,
+    _snaps_of,
+    _zip_held,
 )
 from bytewax_tpu_torch.ops.segment import AGG_KINDS, identity_for
 from bytewax_tpu_torch.parallel.mesh import SHARD_AXIS, Mesh, local_devices, make_mesh
@@ -684,17 +685,26 @@ class ShardedAggState(_ShardedSlots):
     def snapshots_for(self, keys: List[str]) -> List[Tuple[str, Any]]:
         """Host-format snapshots of specific keys (one device→host
         copy)."""
-        if self._fields is None or not keys:
-            return [(k, None) for k in keys]
-        host = self._fetch()
-        out = []
-        for key in keys:
-            kid = self.key_to_kid.get(key)
-            if kid is None:
-                out.append((key, None))
-            else:
-                out.append((key, _snap_of(self.kind_name, host, self._global_idx(kid))))
-        return out
+        kids = [self.key_to_kid.get(key) for key in keys]
+        return _zip_held(keys, kids, self.snapshot_ids)
+
+    def snapshot_ids(self, kids: np.ndarray) -> List[Any]:
+        """Host-format snapshots of the keys holding wire ids ``kids``
+        (see ``xla.DeviceAggState.snapshot_ids``)."""
+        if self._fields is None:
+            return [None] * len(kids)
+        kids = np.asarray(kids, dtype=np.int64)
+        idxs = (kids % self.n_shards) * self.cap_per_shard + kids // self.n_shards
+        return _snaps_of(self.kind_name, self._fetch(), idxs)
+
+    def release_ids(self, kids: np.ndarray) -> None:
+        """Release the keys holding wire ids ``kids`` with one vocab
+        drop for the batch (see ``xla.DeviceAggState.release_ids``)."""
+        keys = self._kid_key
+        for kid in kids.tolist():
+            self._release(keys[kid])
+        if len(kids):
+            self._drop_vocab_ids(kids.tolist())
 
     # -- finalization --------------------------------------------------------
 

@@ -132,13 +132,90 @@ class SessionAccelSpec(WindowAccelSpec):
         return f"SessionAccelSpec({self.kind!r})"
 
 
+class _OpenWindows:
+    """The sliding and tumbling windower's open windows as columns, in
+    the order they opened: key id, window id, close time (epoch us) and the
+    window's id in the fold table, with a live mask.
+
+    A close clears its rows' live bits; the columns compact, keeping
+    their order, only once dead rows outnumber live ones, so removing
+    a window costs amortised O(1) and a due scan is array work over
+    the rows.  ``held`` marks, by fold-table id, the ids an open
+    window holds.  The columns grow by doubling, like the clock.
+    """
+
+    _COLS = ("kid", "wid", "close_us", "slot", "live")
+
+    def __init__(self):
+        self.kid = np.empty(0, dtype=np.int64)
+        self.wid = np.empty(0, dtype=np.int64)
+        self.close_us = np.empty(0, dtype=np.float64)
+        self.slot = np.empty(0, dtype=np.int32)
+        self.live = np.zeros(0, dtype=bool)
+        #: Rows in use, live or dead, and the live ones.
+        self.n = 0
+        self.n_live = 0
+        self.held = np.zeros(0, dtype=bool)
+
+    def _cover(self, slots: np.ndarray) -> None:
+        top = int(slots.max()) + 1 if len(slots) else 0
+        if top > len(self.held):
+            held = np.zeros(max(top, 2 * len(self.held), 64), dtype=bool)
+            held[: len(self.held)] = self.held
+            self.held = held
+
+    def fresh(self, slots: np.ndarray) -> np.ndarray:
+        """Which of ``slots`` hold no open window."""
+        self._cover(slots)
+        return ~self.held[slots]
+
+    def append(self, kid, wid, close_us, slot) -> None:
+        m = len(kid)
+        end = self.n + m
+        if end > len(self.kid):
+            cap = max(end, 2 * len(self.kid), 64)
+            for name in self._COLS:
+                old = getattr(self, name)
+                new = np.zeros(cap, dtype=old.dtype)
+                new[: self.n] = old[: self.n]
+                setattr(self, name, new)
+        self.kid[self.n : end] = kid
+        self.wid[self.n : end] = wid
+        self.close_us[self.n : end] = close_us
+        self.slot[self.n : end] = slot
+        self.live[self.n : end] = True
+        self._cover(slot)
+        self.held[slot] = True
+        self.n = end
+        self.n_live += m
+
+    def drop(self, rows: np.ndarray) -> None:
+        """Close live ``rows``; compact once the dead outnumber the
+        live."""
+        self.live[rows] = False
+        self.held[self.slot[rows]] = False
+        self.n_live -= len(rows)
+        if self.n - self.n_live > self.n_live:
+            keep = np.flatnonzero(self.live[: self.n])
+            m = len(keep)
+            for name in self._COLS[:-1]:
+                col = getattr(self, name)
+                col[:m] = col[keep]
+            self.live[:m] = True
+            self.live[m : self.n] = False
+            self.n = m
+            _flight.RECORDER.count("window_table_compactions")
+
+
 class DeviceWindowAggState:
     """All keys' open windows for one windowed-fold step.
 
     Host numpy state: per-key watermark bases (EventClock semantics:
     watermark = max event ts − wait + system time since that event,
-    ``windowing.py:_EventClockLogic``) and the open-window table
-    mapping ``(key, window_id)`` to a device slot.
+    ``windowing.py:_EventClockLogic``) and the open-window table, the
+    columns of :class:`_OpenWindows`, each window holding a device
+    slot.  A close scans the columns and does Python work only per
+    window that closes.
 
     Key state is bounded as the host tier bounds it: once a key holds
     no open window its clock, its id and its encoder entries are
@@ -179,21 +256,12 @@ class DeviceWindowAggState:
         #: after the emptying phase brought back.
         self._seq = 0
         self._last_seq = np.empty(0, dtype=np.int64)
-        # Open windows: composite "k\x00wid" -> True (slot table lives
-        # in self.agg keyed by the same composite).
-        self.open_close_us: Dict[Tuple[int, int], float] = {}
-        #: Open windows per key id (absent: none).  A dict, not an
-        #: array: the deferred device phase updates it while the
-        #: driver's thread may grow the id space.
-        self._open_n: Dict[int, int] = {}
+        self._init_table()
         #: ``(ingest seq, key ids)`` left with no open window by a
         #: device phase, retired on the driver's thread.
         self._retire_q: deque = deque()
         #: Keys touched since the last epoch snapshot.
         self.touched: set = set()
-        # Cached (kids, wids, closes) arrays over open_close_us;
-        # invalidated whenever the open-window set changes.
-        self._open_cache = None
         # Dictionary-encoded fast path: external id -> internal kid,
         # one map per vocabulary lineage (engine/arrays.py PeerVocab).
         self._vocab = VocabMaps(dtype=np.int64)
@@ -213,6 +281,31 @@ class DeviceWindowAggState:
         from bytewax_tpu_torch.engine.pipeline import pipeline_depth
 
         self._clock_copies = pipeline_depth() > 1
+
+    def _init_table(self) -> None:
+        # Open windows; the slot table in self.agg keys each by the
+        # composite "key\x00wid".
+        self._open = _OpenWindows()
+        #: Open windows per key id (absent: none).  A dict, not an
+        #: array: the deferred device phase updates it while the
+        #: driver's thread may grow the id space.
+        self._open_n: Dict[int, int] = {}
+
+    @property
+    def open_close_us(self) -> Dict[Tuple[int, int], float]:
+        """``(key id, window id) -> close time`` of the open windows,
+        in the order they opened (a copy, built on each read)."""
+        t = self._open
+        live = t.live[: t.n]
+        return dict(
+            zip(
+                zip(t.kid[: t.n][live].tolist(), t.wid[: t.n][live].tolist()),
+                t.close_us[: t.n][live].tolist(),
+            )
+        )
+
+    def _has_open(self) -> bool:
+        return self._open.n_live > 0
 
     # -- clock -------------------------------------------------------------
 
@@ -342,7 +435,7 @@ class DeviceWindowAggState:
             return self._ingest(kids, ts_us, vals)
 
     def is_empty(self) -> bool:
-        return not self.open_close_us and not self.key_ids and not self.touched
+        return not self._has_open() and not self.key_ids and not self.touched
 
     def on_batch_items(self, items: List[Any]):
         """Itemized promotion: one native pass dictionary-encodes the
@@ -536,7 +629,11 @@ class DeviceWindowAggState:
                 prefix = np.maximum.accumulate(eff_sorted[lo:hi])
                 np.maximum(prefix, carry[j], out=wm_sorted[lo:hi])
                 seg_max[j] = prefix[-1]
-        advanced = seg_max > self.base_us[seg_kids]
+        # The base moves only past the key's running watermark (the
+        # host tier's ``new_base > watermark``): moving it past the
+        # base alone would restart the system-time term and pull the
+        # watermark back.
+        advanced = seg_max > carry
         if advanced.any():
             moved = seg_kids[advanced]
             self.base_us[moved] = seg_max[advanced]
@@ -676,48 +773,78 @@ class DeviceWindowAggState:
                 in_window
             ]
 
-        # Composite (key, window) ids; python work only per NEW
-        # composite, per-row mapping is pure numpy.
+        # Composite (key, window) ids; python work only per unique
+        # composite, per-row mapping is pure numpy.  The windows whose
+        # slot holds no open window are new, and open in one write.
         comp = (kid_rep << 32) + (wid_flat + (1 << 31))
         uniq, inverse = np.unique(comp, return_inverse=True)
         slot_of_uniq = np.empty(len(uniq), dtype=np.int32)
-        opened = 0
         for j, c in enumerate(uniq.tolist()):
             kid = c >> 32
             wid = (c & ((1 << 32) - 1)) - (1 << 31)
             slot_of_uniq[j] = self.agg.alloc(
                 f"{self.keys[kid]}\x00{wid}"
             )
-            if (kid, wid) not in self.open_close_us:
-                self.open_close_us[(kid, wid)] = (
-                    spec.align_us
-                    + wid * spec.offset_us
-                    + spec.length_us
-                )
-                self._open_n[kid] = self._open_n.get(kid, 0) + 1
-                opened += 1
-                self._open_cache = None
-        if opened:
-            _flight.RECORDER.count("windows_opened", opened)
+        new = self._open.fresh(slot_of_uniq)
+        if new.any():
+            c = uniq[new]
+            wids = (c & ((1 << 32) - 1)) - (1 << 31)
+            self._open_windows(
+                c >> 32,
+                wids,
+                spec.align_us + wids * spec.offset_us + spec.length_us,
+                slot_of_uniq[new],
+            )
+            _flight.RECORDER.count("windows_opened", len(c))
         return slot_of_uniq[inverse], val_rep
 
-    def _open_arrays(self):
-        """Cached parallel arrays of the open-window table so the
-        per-batch due check is vectorized (a Python loop here is
-        O(keys × windows) per batch at high cardinality)."""
-        if self._open_cache is None:
-            items = list(self.open_close_us.items())
-            kids = np.fromiter(
-                (k for (k, _w), _c in items), dtype=np.int64, count=len(items)
+    def _open_windows(
+        self,
+        kids: np.ndarray,
+        wids: np.ndarray,
+        close_us: np.ndarray,
+        slots: np.ndarray,
+    ) -> None:
+        """Append windows to the open table, in this order."""
+        self._open.append(kids, wids, close_us, slots)
+        open_n = self._open_n
+        ks, counts = np.unique(kids, return_counts=True)
+        for kid, c in zip(ks.tolist(), counts.tolist()):
+            open_n[kid] = open_n.get(kid, 0) + c
+
+    def _close_rows(self, rows: np.ndarray) -> List[int]:
+        """Take open ``rows`` out of the table and release their
+        slots as one batch; returns the key ids left with no window."""
+        t = self._open
+        self.agg.release_ids(t.slot[rows])
+        ks, counts = np.unique(t.kid[rows], return_counts=True)
+        t.drop(rows)
+        open_n = self._open_n
+        emptied = []
+        for kid, c in zip(ks.tolist(), counts.tolist()):
+            left = open_n[kid] - c
+            if left:
+                open_n[kid] = left
+            else:
+                del open_n[kid]
+                emptied.append(kid)
+        return emptied
+
+    def _window_times(
+        self, close_us: np.ndarray
+    ) -> List[Tuple[datetime, datetime]]:
+        """Each window's ``(open, close)`` datetimes, built once per
+        distinct close time and shared (datetimes are immutable)."""
+        uniq, inverse = np.unique(close_us, return_inverse=True)
+        length = self.spec.length_us
+        times = [
+            (
+                datetime.fromtimestamp((c - length) / _US, tz=timezone.utc),
+                datetime.fromtimestamp(c / _US, tz=timezone.utc),
             )
-            wids = np.fromiter(
-                (w for (_k, w), _c in items), dtype=np.int64, count=len(items)
-            )
-            closes = np.fromiter(
-                (c for _kw, c in items), dtype=np.float64, count=len(items)
-            )
-            self._open_cache = (kids, wids, closes)
-        return self._open_cache
+            for c in uniq.tolist()
+        ]
+        return [times[i] for i in inverse.tolist()]
 
     def _close_due(
         self, now_us: float, clock=None, seq: Optional[int] = None
@@ -726,7 +853,7 @@ class DeviceWindowAggState:
         one) has passed at ``now_us``; keys left with no window are
         queued for retirement as of ingest ``seq`` (the latest when
         None)."""
-        if not self.open_close_us:
+        if not self._has_open():
             return []
         with _flight.span("window_close"):
             return self._close_windows(
@@ -734,47 +861,37 @@ class DeviceWindowAggState:
             )
 
     def _close_windows(self, now_us: float, clock, seq: int):
-        kids_arr, wids_arr, closes_arr = self._open_arrays()
+        t = self._open
         base, sys_at = clock if clock is not None else (
             self.base_us,
             self.sys_at_base,
         )
-        wm = base[kids_arr] + (now_us - sys_at[kids_arr])
-        due_rows = np.nonzero(closes_arr <= wm)[0]
-        if not len(due_rows):
+        _flight.RECORDER.count("window_close_scans")
+        kids = t.kid[: t.n]
+        # Dead rows may name retired keys (base -inf): masked, but
+        # -inf + inf at EOF must not warn.
+        with np.errstate(invalid="ignore"):
+            wm = base[kids] + (now_us - sys_at[kids])
+        due = np.flatnonzero(t.live[: t.n] & (t.close_us[: t.n] <= wm))
+        if not len(due):
             return []
-        due = [
-            (int(kids_arr[i]), int(wids_arr[i]), float(closes_arr[i]))
-            for i in due_rows
-        ]
-        events = []
-        # bytewax: allow[BTX-DRAIN] — the windower's .agg is its own slot table (never residency-wrapped; the driver evicts only the keyed-agg/scan tiers), and this due-window fetch runs inside the deferred device phase the pipeline worker owns
-        snaps = self.agg.snapshots_for(
-            [f"{self.keys[kid]}\x00{wid}" for kid, wid, _ in due]
-        )
+        due_kids = kids[due].tolist()
+        due_wids = t.wid[due].tolist()
+        times = self._window_times(t.close_us[due])
+        snaps = self.agg.snapshot_ids(t.slot[due])
+        emptied = self._close_rows(due)
         from bytewax_tpu_torch.operators.windowing import WindowMetadata
 
-        emptied = []
-        for (kid, wid, close_us), (_ck, snap) in zip(due, snaps):
-            key = self.keys[kid]
-            value = self._finalize_one(snap)
-            del self.open_close_us[(kid, wid)]
-            left = self._open_n[kid] - 1
-            if left:
-                self._open_n[kid] = left
-            else:
-                del self._open_n[kid]
-                emptied.append(kid)
-            self.agg.discard(f"{key}\x00{wid}")
-            events.append((key, (wid, "E", value)))
-            open_dt = datetime.fromtimestamp(
-                (close_us - self.spec.length_us) / _US, tz=timezone.utc
-            )
-            close_dt = datetime.fromtimestamp(close_us / _US, tz=timezone.utc)
+        keys = self.keys
+        events = []
+        for kid, wid, (open_dt, close_dt), snap in zip(
+            due_kids, due_wids, times, snaps
+        ):
+            key = keys[kid]
+            events.append((key, (wid, "E", self._finalize_one(snap))))
             events.append(
                 (key, (wid, "M", WindowMetadata(open_dt, close_dt)))
             )
-        self._open_cache = None
         _flight.RECORDER.count("windows_closed", len(due))
         self._retire_later(emptied, seq)
         return events
@@ -805,24 +922,23 @@ class DeviceWindowAggState:
     def notify_at(self, clock=None) -> Optional[datetime]:
         """System time of the earliest window close: the instant the
         key's watermark reaches the close time."""
-        if not self.open_close_us:
+        if not self._has_open():
             return None
         with _flight.span("window_close"):
             return self._notify_at(clock)
 
     def _notify_at(self, clock) -> Optional[datetime]:
-        kids_arr, _wids_arr, closes_arr = self._open_arrays()
+        t = self._open
         base, sys_at = clock if clock is not None else (
             self.base_us,
             self.sys_at_base,
         )
-        bases = base[kids_arr]
-        finite = np.isfinite(bases)
-        if not finite.any():
+        kids = t.kid[: t.n]
+        bases = base[kids]
+        ok = t.live[: t.n] & np.isfinite(bases)
+        if not ok.any():
             return None
-        ats = sys_at[kids_arr][finite] + (
-            closes_arr[finite] - bases[finite]
-        )
+        ats = sys_at[kids[ok]] + (t.close_us[: t.n][ok] - bases[ok])
         return datetime.fromtimestamp(float(ats.min()) / _US, tz=timezone.utc)
 
     # -- recovery ----------------------------------------------------------
@@ -832,10 +948,10 @@ class DeviceWindowAggState:
         with no open windows snapshots as a discard (the host tier
         discards empty window logics the same way).
 
-        One pass over the open-window table groups it by key, and one
-        device→host copy of the slot table serves every key asked
-        for.  (The JAX package scans the whole table and copies the
-        slot table once per key: at 10,000 keys and 110,000 open
+        One masked pass over the open-window columns selects the keys
+        asked for, and one device→host copy of the slot table serves
+        them all.  (The JAX package scans the whole table and copies
+        the slot table once per key: at 10,000 keys and 110,000 open
         sliding windows an epoch snapshot stalled the pipeline so long
         that the EventClock's system-time term made on-time rows
         late.)  The snapshots are the same."""
@@ -846,41 +962,30 @@ class DeviceWindowAggState:
             _WindowSnapshot,
         )
 
-        asked = {}
-        for key in keys:
-            kid = self.key_ids.get(key)
-            if kid is not None:
-                asked[kid] = key
-        open_by_kid: Dict[int, List[Tuple[int, float]]] = {}
-        for (kid, wid), close_us in self.open_close_us.items():
-            if kid in asked:
-                open_by_kid.setdefault(kid, []).append((wid, close_us))
-        comps = [
-            f"{asked[kid]}\x00{wid}"
-            for kid, wins in open_by_kid.items()
-            for wid, _close in wins
-        ]
-        agg_snaps = dict(self.agg.snapshots_for(comps)) if comps else {}
+        # Each key's windows together, in the order they opened.
+        t = self._open
+        rows = self._rows_of(
+            [self.key_ids[k] for k in keys if k in self.key_ids]
+        )
+        rows = rows[np.argsort(t.kid[rows], kind="stable")]
+        by_kid: Dict[int, Tuple[dict, dict]] = {}
+        for kid, wid, (open_dt, close_dt), snap in zip(
+            t.kid[rows].tolist(),
+            t.wid[rows].tolist(),
+            self._window_times(t.close_us[rows]),
+            self.agg.snapshot_ids(t.slot[rows]) if len(rows) else (),
+        ):
+            opened, states = by_kid.setdefault(kid, ({}, {}))
+            opened[wid] = WindowMetadata(open_dt, close_dt)
+            states[wid] = snap
 
         out = []
         for key in keys:
             kid = self.key_ids.get(key)
-            wins = open_by_kid.get(kid) if kid is not None else None
-            if not wins:
+            if kid not in by_kid:
                 out.append((key, None))
                 continue
-            opened = {}
-            states = {}
-            for wid, close_us in wins:
-                open_dt = datetime.fromtimestamp(
-                    (close_us - self.spec.length_us) / _US,
-                    tz=timezone.utc,
-                )
-                close_dt = datetime.fromtimestamp(
-                    close_us / _US, tz=timezone.utc
-                )
-                opened[wid] = WindowMetadata(open_dt, close_dt)
-                states[wid] = agg_snaps[f"{key}\x00{wid}"]
+            opened, states = by_kid[kid]
             base = self.base_us[kid]
             clock_state = _EventClockState(
                 system_time_of_max_event=datetime.fromtimestamp(
@@ -943,35 +1048,44 @@ class DeviceWindowAggState:
             np.full(len(queue), kid, dtype=np.int64), ts_q, vals_q
         )
 
-    def _install(self, key: str, kid: int, snap: Any) -> List[Tuple[str, Any]]:
-        """Restore one key's clock and open windows from its
-        ``_WindowSnapshot``; returns its windows' ``(slot key, state)``
-        pairs for the fold table."""
-        self._load_clock(kid, snap)
-        for wid, meta in snap.windower_state.opened.items():
-            if (kid, wid) not in self.open_close_us:
-                self._open_n[kid] = self._open_n.get(kid, 0) + 1
-            self.open_close_us[(kid, wid)] = _to_us(meta.close_time)
-        return [
-            (f"{key}\x00{wid}", state)
-            for wid, state in snap.logic_states.items()
-        ]
+    def _rows_of(self, kids: List[int]) -> np.ndarray:
+        """The open-window rows of these key ids, in table order."""
+        t = self._open
+        if not kids or not t.n_live:
+            return np.empty(0, dtype=np.int64)
+        return np.flatnonzero(t.live[: t.n] & np.isin(t.kid[: t.n], kids))
 
     def load_many(self, items: List[Tuple[str, Any]]) -> None:
         """Resume a page of host-tier ``(key, _WindowSnapshot)`` pairs.
-        The clocks and open-window maps restore per key; every window's
-        accumulator then goes into the fold table with one
-        ``load_many`` (one indexed write per field for the page; the
-        JAX package writes each window on its own), and queued values
-        replay last."""
+        The clocks restore per key; every window's accumulator then
+        goes into the fold table with one ``load_many`` (one indexed
+        write per field for the page; the JAX package writes each
+        window on its own), the page's windows open in one write, and
+        queued values replay last."""
         if not items:
             return
         kids = self._key_ids_for([key for key, _snap in items]).tolist()
         states = []
+        opened = []
         for (key, snap), kid in zip(items, kids):
-            states.extend(self._install(key, kid, snap))
-        self._open_cache = None
+            self._load_clock(kid, snap)
+            for wid, meta in snap.windower_state.opened.items():
+                opened.append(
+                    (kid, wid, _to_us(meta.close_time), f"{key}\x00{wid}")
+                )
+            states.extend(
+                (f"{key}\x00{wid}", state)
+                for wid, state in snap.logic_states.items()
+            )
         self.agg.load_many(states)
+        if opened:
+            kids_o, wids, closes, comps = zip(*opened)
+            self._open_windows(
+                np.array(kids_o, dtype=np.int64),
+                np.array(wids, dtype=np.int64),
+                np.array(closes, dtype=np.float64),
+                np.array([self.agg.alloc(c) for c in comps], dtype=np.int64),
+            )
         for (_key, snap), kid in zip(items, kids):
             self._replay_queue(kid, snap)
 
@@ -995,18 +1109,12 @@ class DeviceWindowAggState:
         ``inject_keys`` restores the snapshotted clock)."""
         out = []
         for key, snap in self.snapshots_for(keys):
-            if snap is None:
-                continue
-            kid = self.key_ids[key]
-            for k2, wid in [
-                kw for kw in self.open_close_us if kw[0] == kid
-            ]:
-                del self.open_close_us[(k2, wid)]
-                self.agg.discard(f"{key}\x00{wid}")
-            self._open_n.pop(kid, None)
-            self._open_cache = None
-            self.touched.discard(key)
-            out.append((key, snap))
+            if snap is not None:
+                self.touched.discard(key)
+                out.append((key, snap))
+        rows = self._rows_of([self.key_ids[key] for key, _snap in out])
+        if len(rows):
+            self._close_rows(rows)
         return out
 
     def inject_keys(self, items: List[Tuple[str, Any]]) -> None:
@@ -1057,10 +1165,52 @@ class DeviceSessionAggState(DeviceWindowAggState):
         #: session's accumulator
         self.session_slots: Dict[Tuple[int, int], List[str]] = {}
         self._slot_seq = 0
-        # For sessions, ``open_close_us`` holds each session's DUE
-        # time (close + gap) so the base class's vectorized due scan
-        # and ``notify_at`` apply unchanged; emission recovers the
-        # close time by subtracting the gap.
+
+    def _init_table(self) -> None:
+        # Each open session's DUE time (close + gap) by (kid, wid),
+        # rewritten in place as sessions extend and merge, so it is a
+        # dict and the due scan builds its arrays from it; emission
+        # recovers the close time by subtracting the gap.
+        self._due_us: Dict[Tuple[int, int], float] = {}
+        # Cached (kids, wids, dues) arrays over _due_us; invalidated
+        # whenever the open-session set changes.
+        self._open_cache = None
+
+    def _has_open(self) -> bool:
+        return bool(self._due_us)
+
+    def _open_arrays(self):
+        """Cached parallel arrays of the open-session table so the
+        per-batch due check is vectorized (a Python loop here is
+        O(keys × sessions) per batch at high cardinality)."""
+        if self._open_cache is None:
+            items = list(self._due_us.items())
+            kids = np.fromiter(
+                (k for (k, _w), _c in items), dtype=np.int64, count=len(items)
+            )
+            wids = np.fromiter(
+                (w for (_k, w), _c in items), dtype=np.int64, count=len(items)
+            )
+            dues = np.fromiter(
+                (c for _kw, c in items), dtype=np.float64, count=len(items)
+            )
+            self._open_cache = (kids, wids, dues)
+        return self._open_cache
+
+    def _notify_at(self, clock) -> Optional[datetime]:
+        kids_arr, _wids_arr, dues_arr = self._open_arrays()
+        base, sys_at = clock if clock is not None else (
+            self.base_us,
+            self.sys_at_base,
+        )
+        bases = base[kids_arr]
+        finite = np.isfinite(bases)
+        if not finite.any():
+            return None
+        ats = sys_at[kids_arr][finite] + (
+            dues_arr[finite] - bases[finite]
+        )
+        return datetime.fromtimestamp(float(ats.min()) / _US, tz=timezone.utc)
 
     # -- session bookkeeping (per run, host Python) ------------------------
 
@@ -1080,7 +1230,7 @@ class DeviceSessionAggState(DeviceWindowAggState):
             self.next_wid[kid] = wid + 1
             sess[wid] = [lo_us, hi_us, set()]
             self.session_slots[(kid, wid)] = []
-            self.open_close_us[(kid, wid)] = hi_us + gap
+            self._due_us[(kid, wid)] = hi_us + gap
             self._open_cache = None
             return wid
         winner = min(overlapping, key=lambda w: sess[w][0])
@@ -1099,8 +1249,8 @@ class DeviceSessionAggState(DeviceWindowAggState):
             self.session_slots[(kid, winner)].extend(
                 self.session_slots.pop((kid, other))
             )
-            del self.open_close_us[(kid, other)]
-        self.open_close_us[(kid, winner)] = s[1] + gap
+            del self._due_us[(kid, other)]
+        self._due_us[(kid, winner)] = s[1] + gap
         self._open_cache = None
         return winner
 
@@ -1234,7 +1384,7 @@ class DeviceSessionAggState(DeviceWindowAggState):
             key = self.keys[kid]
             acc = self._session_acc(kid, wid, discard=True)
             s = self.sessions[kid].pop(wid)
-            del self.open_close_us[(kid, wid)]
+            del self._due_us[(kid, wid)]
             events.append((key, (wid, "E", self._finalize_one(acc))))
             meta = WindowMetadata(
                 datetime.fromtimestamp(s[0] / _US, tz=timezone.utc),
@@ -1338,7 +1488,7 @@ class DeviceSessionAggState(DeviceWindowAggState):
                 set(meta.merged_ids),
             ]
             self.session_slots[(kid, wid)] = []
-            self.open_close_us[(kid, wid)] = _to_us(meta.close_time) + gap
+            self._due_us[(kid, wid)] = _to_us(meta.close_time) + gap
         # A snapshot taken between a windower merge and the logic
         # merge has the sessions dict merged but logic states still
         # split per pre-merge id; resolve each state to its surviving
@@ -1359,6 +1509,22 @@ class DeviceSessionAggState(DeviceWindowAggState):
             self.session_slots[(kid, target)].append(slot_key)
         return states
 
+    def load_many(self, items: List[Tuple[str, Any]]) -> None:
+        """Resume a page of host-tier ``(key, _WindowSnapshot)`` pairs:
+        the clocks and sessions restore per key, every session's
+        accumulator goes into the fold table with one ``load_many``,
+        and queued values replay last."""
+        if not items:
+            return
+        kids = self._key_ids_for([key for key, _snap in items]).tolist()
+        states = []
+        for (key, snap), kid in zip(items, kids):
+            states.extend(self._install(key, kid, snap))
+        self._open_cache = None
+        self.agg.load_many(states)
+        for (_key, snap), kid in zip(items, kids):
+            self._replay_queue(kid, snap)
+
     def extract_keys(self, keys: List[str]) -> List[Tuple[str, Any]]:
         """Session variant of the residency extract: open sessions
         drain into the snapshot (which carries ``next_id``, so session
@@ -1377,7 +1543,7 @@ class DeviceSessionAggState(DeviceWindowAggState):
             for wid in list(self.sessions.get(kid, {})):
                 for slot_key in self.session_slots.pop((kid, wid), []):
                     self.agg.discard(slot_key)
-                self.open_close_us.pop((kid, wid), None)
+                self._due_us.pop((kid, wid), None)
             self.sessions[kid] = {}
             self._open_cache = None
             self.touched.discard(key)

@@ -13,7 +13,7 @@ Every host→device copy casts explicitly to the accumulator dtype
 its transfers narrow silently, and the port narrows the same way.
 """
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,23 +93,45 @@ def _final_of(kind: str, fields: Dict[str, np.ndarray], i: int):
     raise AssertionError(kind)
 
 
-def _snap_of(kind: str, fields: Dict[str, np.ndarray], i: int):
+def _snaps_of(
+    kind: str, fields: Dict[str, np.ndarray], idx: np.ndarray
+) -> List[Any]:
+    """Host-format snapshots of the slots ``idx``: one gather a
+    field."""
     # Single-field kinds snapshot the bare scalar so host-tier logics
     # can resume from device snapshots and vice versa.
     if kind in ("sum", "min", "max"):
-        return fields[next(iter(fields))][i].item()
+        return fields[next(iter(fields))][idx].tolist()
+    count = fields["count"][idx].astype(np.int64).tolist()
     if kind == "count":
-        return int(fields["count"][i].item())
+        return count
     if kind == "mean":
-        return (fields["sum"][i].item(), int(fields["count"][i].item()))
+        return list(zip(fields["sum"][idx].tolist(), count))
     if kind == "stats":
-        return (
-            fields["min"][i].item(),
-            fields["max"][i].item(),
-            fields["sum"][i].item(),
-            int(fields["count"][i].item()),
+        return list(
+            zip(
+                fields["min"][idx].tolist(),
+                fields["max"][idx].tolist(),
+                fields["sum"][idx].tolist(),
+                count,
+            )
         )
     raise AssertionError(kind)
+
+
+def _zip_held(
+    keys: List[str],
+    ids: List[Optional[int]],
+    snapshot_ids: Callable[[np.ndarray], List[Any]],
+) -> List[Tuple[str, Any]]:
+    """``(key, snapshot)`` of each key, None where its id is None."""
+    held = [i for i, at in enumerate(ids) if at is not None]
+    snaps: List[Any] = [None] * len(keys)
+    if held:
+        got = snapshot_ids(np.array([ids[i] for i in held], dtype=np.int64))
+        for i, snap in zip(held, got):
+            snaps[i] = snap
+    return list(zip(keys, snaps))
 
 
 class DeviceAggState:
@@ -233,15 +255,18 @@ class DeviceAggState:
             self.slot_keys[slot] = None  # type: ignore[call-overload]
             self._free.append(slot)
             self._enc.drop(key)
-            if self._iddict:
-                # Dense ids must stay collision-free (kv_encode
-                # assigns len(dict)), so a discard invalidates the
-                # itemized cache wholesale; keys re-intern to their
-                # existing slots on the next batch.
-                self._iddict = {}
-                self._id_keys = []
-                self._id_to_slot = np.empty(0, dtype=np.int32)
+            self._forget_itemized()
         return slot
+
+    def _forget_itemized(self) -> None:
+        if self._iddict:
+            # Dense ids must stay collision-free (kv_encode assigns
+            # len(dict)), so a discard invalidates the itemized cache
+            # wholesale; keys re-intern to their existing slots on the
+            # next batch.
+            self._iddict = {}
+            self._id_keys = []
+            self._id_to_slot = np.empty(0, dtype=np.int32)
 
     def _apply_resets(self) -> None:
         if self._fields is None:
@@ -563,17 +588,33 @@ class DeviceAggState:
     def snapshots_for(self, keys: List[str]) -> List[Tuple[str, Any]]:
         """Host-format snapshots of specific keys (one device→host
         copy)."""
-        if self._fields is None or not keys:
-            return [(k, None) for k in keys]
-        host = self._fetch()
-        out = []
-        for key in keys:
-            slot = self.key_to_slot.get(key)
-            if slot is None:
-                out.append((key, None))
-            else:
-                out.append((key, _snap_of(self.kind_name, host, slot)))
-        return out
+        slots = [self.key_to_slot.get(key) for key in keys]
+        return _zip_held(keys, slots, self.snapshot_ids)
+
+    def snapshot_ids(self, slots: np.ndarray) -> List[Any]:
+        """Host-format snapshots of the keys holding ``slots`` (what
+        :meth:`alloc` returned), in their order: one device→host copy
+        and one gather a field, whatever the number of slots."""
+        if self._fields is None:
+            return [None] * len(slots)
+        return _snaps_of(self.kind_name, self._fetch(), slots)
+
+    def release_ids(self, slots: np.ndarray) -> None:
+        """Release the keys holding ``slots`` (:meth:`extract_keys` by
+        slot): one pass each over the encoder and the vocab maps for
+        the batch."""
+        if not len(slots):
+            return
+        freed = slots.tolist()
+        keys, key_to_slot = self.slot_keys, self.key_to_slot
+        for slot in freed:
+            del key_to_slot[keys[slot]]
+            keys[slot] = None
+        self._free.extend(freed)
+        self._enc.drop_ids(slots)
+        self._forget_itemized()
+        if self._vocab.drop_ids(slots):
+            self._dev_maps.clear()
 
     # -- finalization ------------------------------------------------------
 

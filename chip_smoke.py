@@ -3228,15 +3228,22 @@ def _scan_states():
 def _per_window_install(state, key: str, snap) -> None:
     """The window resume as it was before the install was paged: the
     clock and open windows, then one fold-table ``load`` a window."""
+    import numpy as np
+
     from bytewax_tpu_torch.engine.window_accel import _to_us
 
     kid = int(state._key_ids_for([key])[0])
     state._load_clock(kid, snap)
-    for wid, meta in snap.windower_state.opened.items():
-        state.open_close_us[(kid, wid)] = _to_us(meta.close_time)
-    state._open_cache = None
     for wid, acc in snap.logic_states.items():
         state.agg.load(f"{key}\x00{wid}", acc)
+    opened = snap.windower_state.opened
+    if opened:
+        state._open_windows(
+            np.full(len(opened), kid, dtype=np.int64),
+            np.fromiter(opened, dtype=np.int64, count=len(opened)),
+            np.array([_to_us(meta.close_time) for meta in opened.values()]),
+            np.array([state.agg.alloc(f"{key}\x00{wid}") for wid in opened]),
+        )
     state._replay_queue(kid, snap)
 
 
